@@ -6,24 +6,35 @@
 Phases, each printing its lines; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 2;
-2. build the port's CUDA kernels from `linearsfm_tpu_torch/csrc`;
+2. build the port's CUDA kernels from `linearsfm_tpu_torch/csrc` (one nvcc
+   per source, all at once, linked into one library);
 3. kernel K1 (`blockcoo_to_dense`) against its plain PyTorch version on the
    card: K = 0, padding rows, duplicates, unsorted rows, lane-folded
    batches, float64, and the level-1 and root shapes of the main path,
    including a feature-chunked stripe. Exact where no two entries share a coordinate,
    else rtol 1e-6 (plus 1e-6 of the largest magnitude). Median CUDA-event
    time of each side;
-4. a 13-map stereo tree solved on the GPU and on the CPU, by the main
-   path's method ("refine") and by "direct" (K1 in float64): poses agree to
-   atol 1e-9;
-5. the main path: the 2,048-map stereo loop-closure set (seed 7, noise
-   0.005, covis radius 6, at most 6 co-visible features per map) through
-   `DeviceTreeSolver("stereo", method="refine", device="cuda")`, one warm
-   run and one timed run. Fails unless the ATE is within 1e-6 of the oracle's
-   0.009758730, every level's PCG residual is <= 1e-10 and K1 launched.
+4. kernel K2 (`inv3x3_sym`) against its plain version, exactly
+   (`torch.equal`, NaN where the plain version has NaN), in float32 and
+   float64: zero, NaN and near-singular blocks, the mono plan's level-1 lane
+   stack [1024, 64, 3, 3] and its root join's [1, 11648, 3, 3]. Median
+   CUDA-event time of each side;
+5. small trees solved on the GPU and on the CPU, by "refine" and by
+   "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
+   agree to atol 1e-9;
+6. the stereo main path: the 2,048-map stereo loop-closure set (seed 7,
+   noise 0.005, covis radius 6, at most 6 co-visible features per map)
+   through `DeviceTreeSolver("stereo", method="refine", device="cuda")`, one
+   warm run and one timed run. Fails unless every pose id 1..2,048 is there
+   and finite, the ATE is within 1e-6 of the oracle's 0.009758730, every
+   level's PCG residual is <= 1e-10 and K1 and K2 launched;
+7. the mono main path: the same set in mono (pose 0 is an explicit block:
+   ids 0..2,049) through `DeviceTreeSolver("mono", ...)`, checked the same
+   way against the oracle's 0.014352172.
 
-The line before the last is the kernel record; the last line is
-{"ok": true, "device": {...}}.
+The kernel launch counts are set to 0 just before each main path's timed
+run and read just after it. The line before the last is the kernel record;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ORACLE_ATE_2048 = 0.009758730   # oracle ATE, stereo 2,048 covis, seed 7
+# oracle ATEs of the 2,048-map covis sets, seed 7 (ate_2048_covis*.json)
+ORACLE_ATE_2048 = {"stereo": 0.009758730, "mono": 0.014352172}
 
 
 def _median_ms(fn, reps):
@@ -151,52 +163,114 @@ def phase_kernels():
     return max_err, times
 
 
+def _inv3x3_cases(dtype):
+    """K2 inputs on the card: random SPD blocks with a zero, a NaN and two
+    near-singular blocks; the mono plan's level-1 lane stack (1,024 pairs of
+    feature capacity 32) and its root join (two lanes of capacity 5,824)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(43)
+
+    def spd(*lead):
+        A = torch.randn(lead + (3, 3), generator=g, device="cuda", dtype=dtype)
+        return A @ A.transpose(-1, -2) + 0.1 * torch.eye(3, device="cuda",
+                                                         dtype=dtype)
+    V = spd(300)
+    V[7] = 0.0
+    V[11, 1, 2] = V[11, 2, 1] = float("nan")
+    v = torch.randn(3, generator=g, device="cuda", dtype=dtype)
+    V[13] = torch.outer(v, v)                           # rank 1
+    V[17] = torch.outer(v, v) + 1e-5 * torch.eye(3, device="cuda", dtype=dtype)
+    return {"special": V, "level1 [1024, 64]": spd(1024, 64),
+            "root [1, 11648]": spd(1, 11648)}
+
+
+def phase_k2():
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+
+    max_err = 0.0
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        for name, V in _inv3x3_cases(dtype).items():
+            got = kernels.inv3x3_sym(V)
+            ref = kernels.inv3x3_sym_ref(V)
+            torch.cuda.synchronize()
+            nan_same = torch.equal(torch.isnan(got), torch.isnan(ref))
+            if not (nan_same and torch.equal(torch.nan_to_num(got),
+                                             torch.nan_to_num(ref))):
+                raise AssertionError(f"K2 {name} {dn}: kernel != plain")
+            fin = torch.isfinite(ref)
+            err = float((got[fin] - ref[fin]).abs().max())
+            max_err = max(max_err, err)
+            print(f"k2 {name} {dn}: {list(V.shape)} max_abs_err={err:.3e} "
+                  f"nan blocks {int(torch.isnan(got).any(-1).any(-1).sum())} "
+                  f"(torch.equal) ok", flush=True)
+            if name == "special":
+                continue
+            reps = 20
+            p1 = _median_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
+            k1 = _median_ms(lambda: kernels.inv3x3_sym(V), reps)
+            k2 = _median_ms(lambda: kernels.inv3x3_sym(V), reps)
+            p2 = _median_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
+            times[(name, dn)] = (min(k1, k2), min(p1, p2))
+            print(f"k2 time {name} {dn}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.4f}/{p2:.4f} ms (median of {reps})", flush=True)
+    return max_err, times
+
+
 def _poses_by_id(lm):
     from linearsfm_tpu_torch import types
     h = types.to_numpy(lm)
     return {int(i): h.poses[s] for s, i in enumerate(h.pose_ids) if i >= 0}
 
 
-def phase_small_tree():
+def phase_small_trees():
     import numpy as np
     from synth import generate as gen
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
 
-    maps, _, _ = gen.make_dataset(13, "stereo", noise=0.01, seed=5)
-    # refine is the main path; direct runs K1 in float64
-    for method in ("refine", "direct"):
-        a = _poses_by_id(DeviceTreeSolver("stereo", method=method,
-                                          device="cuda").run(maps))
-        b = _poses_by_id(DeviceTreeSolver("stereo", method=method,
-                                          device="cpu").run(maps))
-        if set(a) != set(b):
-            raise AssertionError("13-map tree: GPU and CPU pose ids differ")
-        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a)
-        if not diff <= 1e-9:
-            raise AssertionError(f"13-map tree {method}: GPU vs CPU pose diff "
-                                 f"{diff:.3e}")
-        print(f"tree13 stereo {method}: GPU vs CPU max pose diff {diff:.3e} "
-              f"(atol 1e-9) ok", flush=True)
+    for datatype, n in (("stereo", 13), ("mono", 11)):
+        maps, _, _ = gen.make_dataset(n, datatype, noise=0.01, seed=5)
+        # refine is the main path; direct runs K1 and K2 in float64
+        for method in ("refine", "direct"):
+            a = _poses_by_id(DeviceTreeSolver(datatype, method=method,
+                                              device="cuda").run(maps))
+            b = _poses_by_id(DeviceTreeSolver(datatype, method=method,
+                                              device="cpu").run(maps))
+            if set(a) != set(b):
+                raise AssertionError(f"{n}-map {datatype} tree: GPU and CPU "
+                                     f"pose ids differ")
+            diff = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+            if not diff <= 1e-9:
+                raise AssertionError(f"{n}-map {datatype} tree {method}: GPU "
+                                     f"vs CPU pose diff {diff:.3e}")
+            print(f"tree{n} {datatype} {method}: GPU vs CPU max pose diff "
+                  f"{diff:.3e} (atol 1e-9) ok", flush=True)
 
 
-def phase_main_path():
+def phase_main_path(datatype):
+    """One warm and one timed run of the 2,048-map covis set; returns the
+    kernel launch counts of the timed run."""
     import numpy as np
     import torch
     from synth import generate as gen
+    from linearsfm_tpu_torch import types
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.ops import kernels
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
-    n = 2048
+    n, tag = 2048, f"main {datatype}"
+    oracle = ORACLE_ATE_2048[datatype]
     t0 = time.perf_counter()
-    maps, poses_gt, _ = gen.make_dataset(n, "stereo", noise=0.005, seed=7,
+    maps, poses_gt, _ = gen.make_dataset(n, datatype, noise=0.005, seed=7,
                                          covis_radius=6.0, covis_max=6)
-    print(f"main: dataset {n} stereo maps in {time.perf_counter() - t0:.2f} s",
+    print(f"{tag}: dataset {n} maps in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    solver = DeviceTreeSolver("stereo", method="refine", device="cuda")
+    solver = DeviceTreeSolver(datatype, method="refine", device="cuda")
     t0 = time.perf_counter()
     solver.run(maps)
-    print(f"main: warm run {time.perf_counter() - t0:.3f} s "
+    print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s "
           f"{solver._last_timing}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
@@ -210,35 +284,39 @@ def phase_main_path():
     launched = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    from linearsfm_tpu_torch import types
     h = types.to_numpy(out)
     ids, poses = h.pose_ids, h.poses
     valid = ids >= 0
-    if not np.isfinite(poses[valid]).all() or int(valid.sum()) != n:
-        raise AssertionError(f"main: {int(valid.sum())} valid poses, "
-                             f"finite={np.isfinite(poses[valid]).all()}")
+    # stereo: pose 0 is the frame itself; mono keeps it as an explicit block
+    want_ids = set(range(1, n + 1)) if datatype == "stereo" else set(range(n + 2))
+    if (sorted(int(i) for i in ids[valid]) != sorted(want_ids)
+            or not np.isfinite(poses[valid]).all()):
+        raise AssertionError(f"{tag}: {int(valid.sum())} valid poses (want "
+                             f"{len(want_ids)} ids), finite="
+                             f"{np.isfinite(poses[valid]).all()}")
     err = [float(np.linalg.norm(poses[s][:3] - poses_gt[int(i)][:3]))
            for s, i in enumerate(ids) if i >= 0]
     ate = float(np.sqrt(np.mean(np.square(err))))
     res = [r.get("res_max", float("nan")) for r in metrics.records]
     res_max = max(res)
-    print(f"main: timed run {wall:.4f} s = {(n - 1) / wall:.2f} maps_joined/s, "
-          f"peak device memory {peak:.2f} GiB, host phases "
+    print(f"{tag}: timed run {wall:.4f} s = {(n - 1) / wall:.2f} "
+          f"maps_joined/s, peak device memory {peak:.2f} GiB, host phases "
           f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }",
           flush=True)
     for r in metrics.records:
-        print(f"main: level {r['level']:2d} joins {r['n_joins']:4d} "
+        print(f"{tag}: level {r['level']:2d} joins {r['n_joins']:4d} "
               f"join_m {r['join_m']:5d} exec_wall {r['exec_wall'] * 1e3:9.3f} ms "
               f"res_max {r.get('res_max', float('nan')):.3e}", flush=True)
-    print(f"main: ATE {ate:.9f} (oracle {ORACLE_ATE_2048:.9f}, diff "
-          f"{ate - ORACLE_ATE_2048:+.3e}), res_max {res_max:.3e}, "
-          f"K1 launches {launched}", flush=True)
-    if not abs(ate - ORACLE_ATE_2048) <= 1e-6:
-        raise AssertionError(f"main: ATE {ate} off the oracle's")
+    print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
+          f"{ate - oracle:+.3e}), res_max {res_max:.3e}, {len(err)} poses, "
+          f"kernel launches {launched}", flush=True)
+    if not abs(ate - oracle) <= 1e-6:
+        raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
     if not res_max <= 1e-10:
-        raise AssertionError(f"main: res_max {res_max} > 1e-10")
-    if launched["blockcoo_to_dense"] <= 0:
-        raise AssertionError("main: K1 was never launched")
+        raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
+    for k, c in launched.items():
+        if c <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was never launched")
     return launched
 
 
@@ -263,21 +341,30 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build()
-    print(f"build: blockcoo_to_dense (nvcc sm_90a) "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {', '.join(os.path.basename(s) for s in kernels.SOURCES)} "
+          f"(nvcc sm_90a) {time.perf_counter() - t0:.2f} s", flush=True)
 
-    max_err, times = phase_kernels()
-    phase_small_tree()
-    launched = phase_main_path()
+    k1_err, k1_times = phase_kernels()
+    k2_err, k2_times = phase_k2()
+    phase_small_trees()
+    paths = {d: phase_main_path(d) for d in ("stereo", "mono")}
 
-    ms, plain_ms = times["root W stripe 6x3"]
-    print(json.dumps({"kernels": [{
-        "name": "blockcoo_to_dense", "route": "cuda",
-        "source": "linearsfm_tpu_torch/csrc/blockcoo_dense.cu",
-        "replaces": "linearsfm_tpu/ops/pallas_kernels.py:156",
-        "launches": launched["blockcoo_to_dense"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}),
-        flush=True)
+    def record(name, source, replaces, max_err, times):
+        ms, plain_ms = times
+        by_path = {d: c[name] for d, c in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": max_err,
+                "ms": ms, "plain_ms": plain_ms}
+
+    print(json.dumps({"kernels": [
+        record("blockcoo_to_dense",
+               "linearsfm_tpu_torch/csrc/blockcoo_dense.cu",
+               "linearsfm_tpu/ops/pallas_kernels.py:156", k1_err,
+               k1_times["root W stripe 6x3"]),
+        record("inv3x3_sym", "linearsfm_tpu_torch/csrc/inv3x3_sym.cu",
+               "linearsfm_tpu/ops/pallas_kernels.py:57", k2_err,
+               k2_times[("root [1, 11648]", "float32")])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

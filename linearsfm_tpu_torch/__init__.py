@@ -2,9 +2,9 @@
 
 The PyTorch port of `linearsfm_tpu` (the JAX reference, which stays beside
 it). Module paths mirror the reference one for one (`types`, `ops/`, `core/`,
-`utils/`); the one TPU kernel on the stereo main path,
-`blockcoo_to_dense`, is a hand-written CUDA kernel (`csrc/`, bound in
-`ops/kernels.py`).
+`utils/`); both TPU kernels of the reference, `blockcoo_to_dense` and
+`inv3x3_sym`, are hand-written CUDA kernels (`csrc/`, bound in
+`ops/kernels.py`) on the stereo and the mono path.
 
 Conventions that replace the reference's JAX configuration:
 

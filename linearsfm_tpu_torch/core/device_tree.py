@@ -1,6 +1,7 @@
 """Device-resident merge tree: each level is one batched pass over its pairs.
 
-Counterpart of `linearsfm_tpu/core/device_tree.py` (stereo, one device).
+Counterpart of `linearsfm_tpu/core/device_tree.py` (stereo and mono, one
+device).
 The whole level — all pairwise joins, the every-2nd-map re-gauge to the
 final frame, the odd carry and the compaction — runs on lane-stacked
 [count, ...caps] tensors, so the maps never leave the device between levels.
@@ -72,7 +73,9 @@ class DeviceTreeSolver:
     """Device-resident hierarchical solver: binary-tree reduction with odd
     carry, every-2nd-map re-gauge, final re-gauge to the first map's frame.
 
-    device: where the levels run (explicit; nothing is picked by default).
+    datatype: "stereo" or "mono". device: where the levels run (explicit;
+    nothing is picked by default). Mono joins pin the scale coordinate with
+    `JoinConfig`'s default, "sign".
     Iteration bands (method="refine"): joins with fewer than `top_min_m`
     joined poses run `refine_iters` PCG sweeps; larger ones up to
     `top_iters`, with the early exit at `pcg_exit_tol` and `top_iters` more
@@ -83,12 +86,14 @@ class DeviceTreeSolver:
 
     def __init__(self, datatype: str = "stereo", method: str = "refine",
                  refine_iters: int = 3, bucket: int = 16, u_bucket: int = 64,
-                 mixed_max_m: int = 0, direct_min_m: int = 0,
+                 mixed_max_m: int = 0,
+                 direct_min_m: int = 0,
                  top_min_m: int = 256, top_iters: int = 16,
                  escalate_tol: float = 1e-8, pcg_exit_tol: float = 1e-14, *,
                  device):
-        if datatype != "stereo":
-            raise NotImplementedError("the port solves stereo maps only")
+        if datatype not in ("stereo", "mono"):
+            raise ValueError(f"datatype must be 'stereo' or 'mono', got "
+                             f"{datatype!r}")
         self.datatype = datatype
         self.device = torch.device(device)
         self.method = method
@@ -123,15 +128,25 @@ class DeviceTreeSolver:
 
     # -- building blocks -----------------------------------------------------
     def _merge(self, g: types.LocalMap, m: types.LocalMap, cfg):
-        end = congruence.transform_map_stereo(g, m.gauge.ref,
-                                              info_dtype=cfg.info_dtype)
-        return join_mod.join_stereo(end, m, cfg)
+        if self.datatype == "stereo":
+            end = congruence.transform_map_stereo(g, m.gauge.ref,
+                                                  info_dtype=cfg.info_dtype)
+            return join_mod.join_stereo(end, m, cfg)
+        end = congruence.transform_map_mono(g, m.gauge.ref, m.gauge.scap,
+                                            m.gauge.fix,
+                                            info_dtype=cfg.info_dtype)
+        return join_mod.join_mono(end, m, cfg)
 
     def _regauge_compact(self, lm: types.LocalMap, caps_out, info_dtype):
         """Re-gauge to the final frame + compact, on the lanes the exact plan
         flags (the id comparison ref > fref is decided on the host)."""
-        t = congruence.transform_map_stereo(lm, lm.gauge.fref,
-                                            info_dtype=info_dtype)
+        g = lm.gauge
+        if self.datatype == "stereo":
+            t = congruence.transform_map_stereo(lm, g.fref,
+                                                info_dtype=info_dtype)
+        else:
+            t = congruence.transform_map_mono(lm, g.fref, g.fscap, g.ffix,
+                                              info_dtype=info_dtype)
         return dcompact.compact_device(t, *caps_out)[0]
 
     def _level(self, x: types.LocalMap, lp: plan_mod.LevelPlan):

@@ -1,10 +1,10 @@
-"""Pairwise map joining: the exactly-linear least-squares fusion (stereo).
+"""Pairwise map joining: the exactly-linear least-squares fusion.
 
 Counterpart of `linearsfm_tpu/core/join.py` (`JoinConfig`,
-`_match_features`, `join_stereo`). Given `end` already re-expressed in
-`cur`'s gauge, stack the two information forms and solve once:
-``x* = (I_end + I_cur)^{-1} (I_end x_end + I_cur x_cur)``. Every lane of the
-lane-stacked inputs is one independent pair.
+`_match_features`, `join_stereo`, `join_mono`). Given `end` already
+re-expressed in `cur`'s gauge, stack the two information forms and solve
+once: ``x* = (I_end + I_cur)^{-1} (I_end x_end + I_cur x_cur)``. Every lane
+of the lane-stacked inputs is one independent pair.
 """
 
 from __future__ import annotations
@@ -16,12 +16,17 @@ import torch
 
 from .. import types
 from ..ops import schur, solve
-from ..ops.segment import seg_sum
+from ..ops.rotations import wrap_angle_diff, wrap_angle_pi
+from ..ops.segment import put1, seg_sum, take1
 
 
 class JoinConfig(NamedTuple):
     method: str = "refine"    # "refine" (f32-preconditioned f64 PCG) | "direct"
     refine_iters: int = 3
+    # Mono scale pin. "sign": condition the solve on the pinned coordinate's
+    # value (E -= S[:, fix] * sign), exact constrained fusion. "zero": drop
+    # the column as the reference C++ solver does (method="direct" only).
+    pin: str = "sign"
     # information-path dtype (None = inherit); the solved state keeps the
     # state dtype
     info_dtype: torch.dtype | None = None
@@ -129,4 +134,141 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
         n_feats=end.n_feats + cur.n_feats - ncom,
         n_U=count(U.shape[1]), n_W=count(W.shape[1]),
         gauge=dataclasses.replace(end.gauge, ref=cur.gauge.ref))
+    return (out, res.to(xp.dtype)) if cfg.with_res else out
+
+
+def join_mono(end: types.LocalMap, cur: types.LocalMap,
+              cfg: JoinConfig = JoinConfig()):
+    """Fuse the lanes of two stacked mono maps sharing the same (ref, scap,
+    fix) gauge (`end` already in `cur`'s gauge).
+
+    cur's ref and scap slots are identified with end's and left as dead
+    slots (id -1, zero information, gauge-masked); every block touching the
+    zero-information reference pose is zeroed.
+    """
+    P = end.poses.shape[0]
+    M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N
+    Mo, No = M1 + M2, N1 + N2
+    dev = end.poses.device
+
+    pos1 = types.first_true(end.pose_ids == end.gauge.ref[:, None])
+    pos2 = types.first_true(end.pose_ids == end.gauge.scap[:, None])
+    cref = types.first_true(cur.pose_ids == cur.gauge.ref[:, None])
+    cscap = types.first_true(cur.pose_ids == cur.gauge.scap[:, None])
+
+    # ---- angle wraparound on the scale-pose blocks -------------------------
+    def with_angles(poses, slot, ang):
+        return put1(poses, slot, torch.cat([take1(poses, slot)[:, 0:3], ang],
+                                           dim=-1))
+    end_ang = wrap_angle_pi(take1(end.poses, pos2)[:, 3:6])
+    end_poses = with_angles(end.poses, pos2, end_ang)
+    cur_ang = wrap_angle_diff(wrap_angle_pi(take1(cur.poses, cscap)[:, 3:6]),
+                              end_ang)
+    cur_poses = with_angles(cur.poses, cscap, cur_ang)
+
+    # ---- drop zero-information blocks touching the reference pose ---------
+    idt = cfg.info_dtype or end.U.dtype
+
+    def drop_ref(lm, ref):
+        keep_u = (lm.Uij[..., 0] != ref[:, None]) & (lm.Uij[..., 1] != ref[:, None])
+        keep_w = lm.Wpf[..., 0] != ref[:, None]
+        return (torch.where(keep_u[..., None, None], lm.U.to(idt), 0.0),
+                torch.where(keep_w[..., None, None], lm.W.to(idt), 0.0))
+    endU, endW = drop_ref(end, pos1)
+    curU, curW = drop_ref(cur, cref)
+    endV, curV = end.V.to(idt), cur.V.to(idt)
+
+    # ---- pose identification: cur's ref/scap -> end's slots ---------------
+    ar2 = torch.arange(M2, device=dev)
+    is_ref, is_scap = ar2 == cref[:, None], ar2 == cscap[:, None]
+    slotmap2 = torch.where(is_ref, pos1[:, None], (ar2 + M1).expand(P, M2))
+    slotmap2 = torch.where(is_scap, pos2[:, None], slotmap2)
+    dead2 = is_ref | is_scap
+
+    # ---- feature matching --------------------------------------------------
+    joint2, matched = _match_features(end.feat_ids, end.feat_mask(),
+                                      cur.feat_ids, cur.feat_mask(),
+                                      end.n_feats, No)
+    ncom = matched.sum(dim=1)
+    joint2g = torch.clamp(joint2, 0, No - 1)   # gather-safe
+
+    # ---- ids ---------------------------------------------------------------
+    # cur's ref/scap slots become dead
+    pose_ids = torch.cat([end.pose_ids, torch.where(dead2, -1, cur.pose_ids)],
+                         dim=1)
+    feat_ids = torch.full((P, No + 1), -1, dtype=types.INDEX, device=dev)
+    feat_ids[:, :N1] = end.feat_ids
+    feat_ids.scatter_(1, joint2, cur.feat_ids)    # slot No is the drop slot
+    feat_ids = feat_ids[:, :No]
+
+    # ---- information blocks ------------------------------------------------
+    U = torch.cat([endU, curU], dim=1)
+    Uij2 = slotmap2.gather(1, cur.Uij.reshape(P, -1)).reshape(cur.Uij.shape)
+    Uij = torch.cat([end.Uij, Uij2], dim=1)
+    W = torch.cat([endW, curW], dim=1)
+    Wpf2 = torch.stack([slotmap2.gather(1, cur.Wpf[..., 0]),
+                        joint2g.gather(1, cur.Wpf[..., 1])], dim=-1)
+    Wpf = torch.cat([end.Wpf, Wpf2], dim=1)
+    V = seg_sum(curV, joint2, No)
+    V[:, :N1] += endV
+
+    # ---- information vectors (after the drop and the wraparound) ----------
+    eP1, eF1 = schur.info_vector(end_poses, end.feats, endU, end.Uij, endW,
+                                 end.Wpf, endV)
+    eP2, eF2 = schur.info_vector(cur_poses, cur.feats, curU, cur.Uij, curW,
+                                 cur.Wpf, curV)
+    # cur's ref and scap rows add into end's slots
+    eP = seg_sum(eP2, slotmap2, Mo)
+    eP[:, :M1] += eP1
+    eF = seg_sum(eF2, joint2, No)
+    eF[:, :N1] += eF1
+
+    # ---- Schur + gauge-masked solve ----------------------------------------
+    pose_valid = torch.cat([end.pose_mask(), cur.pose_mask() & ~dead2], dim=1)
+    fixed = ~pose_valid.repeat_interleave(6, dim=1)
+    coord = torch.arange(6 * Mo, device=dev)
+    fixed |= (coord >= 6 * pos1[:, None]) & (coord < 6 * pos1[:, None] + 6)
+    fixc = 6 * pos2 + end.gauge.fix
+    fixed |= coord == fixc[:, None]                   # the pinned scale coord
+    sign = end.gauge.sign.to(idt)
+
+    if cfg.method == "refine" and cfg.pin == "sign":
+        xp, xf, res = schur.solve_full_mixed(
+            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, iters=cfg.refine_iters,
+            fixc=fixc, sign=sign, escalate_iters=cfg.escalate_iters,
+            escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
+    elif cfg.method == "direct" and cfg.pin in ("sign", "zero"):
+        Vinv = schur.inv3x3_sym(V)
+        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, Mo)
+        if cfg.pin == "sign":
+            E = E - S[torch.arange(P, device=dev), :, fixc] * sign[:, None]
+        S, E = solve.mask_gauge(S, E, fixed)
+        xp = solve.cholesky_solve(S, E).reshape(P, Mo, 6)
+        if cfg.pin == "sign":
+            # exact constrained fusion: back-substitute with the pinned
+            # coordinate at its value
+            xp = schur.pin_coordinate(xp, fixc, sign)
+            xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
+        else:
+            # the reference C++ order: back-substitute with the pinned
+            # coordinate still at 0, set it to sign afterwards
+            xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
+            xp = schur.pin_coordinate(xp, fixc, sign)
+        res = torch.full((P,), torch.nan, dtype=xp.dtype, device=dev)
+    else:
+        raise ValueError(f"join_mono: no solve for method={cfg.method!r}, "
+                         f"pin={cfg.pin!r}")
+    xp = xp.to(end.dtype)
+    xf = xf.to(end.dtype)
+
+    count = lambda k: torch.full((P,), k, dtype=types.INDEX, device=dev)  # noqa: E731
+    out = types.LocalMap(
+        pose_ids=pose_ids, poses=xp, feat_ids=feat_ids, feats=xf,
+        U=U, Uij=Uij, W=W, Wpf=Wpf, V=V,
+        n_poses=end.n_poses + cur.n_poses - 2,
+        n_feats=end.n_feats + cur.n_feats - ncom,
+        n_U=count(U.shape[1]), n_W=count(W.shape[1]),
+        # gauge tags from cur, final-frame tags from end
+        gauge=dataclasses.replace(cur.gauge, fref=end.gauge.fref,
+                                  fscap=end.gauge.fscap, ffix=end.gauge.ffix))
     return (out, res.to(xp.dtype)) if cfg.with_res else out

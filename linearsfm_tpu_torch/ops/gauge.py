@@ -1,10 +1,20 @@
-"""Stereo gauge (coordinate) transforms of local maps.
+"""Gauge (coordinate and scale) transforms of local maps.
 
-Counterpart of `linearsfm_tpu/ops/gauge.py` (stereo part). Gauge = the 6-DOF
-pose ``g`` of the new reference pose: pose ``(tb, Rb) -> (R (tb - t),
-Rb R^T)``, feature ``f -> R (f - t)``; the slot holding the new reference is
-reused for the old one, with value ``invpose(g)`` and the old reference id.
-The transform is an involution, which `ops/congruence.py` relies on.
+Counterpart of `linearsfm_tpu/ops/gauge.py`.
+
+* Stereo: gauge = the 6-DOF pose ``g`` of the new reference pose: pose
+  ``(tb, Rb) -> (R (tb - t), Rb R^T)``, feature ``f -> R (f - t)``; the slot
+  holding the new reference is reused for the old one, with value
+  ``invpose(g)`` and the old reference id.
+* Mono: gauge = reference pose ``g`` + scale pose ``s`` + pinned axis
+  ``fix``: ``scale = |[R (t_s - t)]_fix|``, and every translation and feature
+  of the stereo-style transform is divided by it. Every pose, the reference
+  included, is an explicit slot; the new reference lands at exactly 0 and the
+  scale pose's pinned coordinate at exactly ``sign = +-1``.
+
+The transforms are involutions, which `ops/congruence.py` relies on. `fix` is
+an integer or an index tensor broadcast against the leading dims (one per
+lane).
 """
 
 from __future__ import annotations
@@ -56,3 +66,54 @@ def transform_state_stereo(pose_ids, poses, feats, new_ref_id, old_ref_id):
     new_poses = segment.put1(new_poses, slot, inv)
     new_ids = segment.put1(pose_ids, slot, old_ref_id)
     return new_ids, new_poses, new_feats
+
+
+def _scale_sign(ts: torch.Tensor, fix):
+    """(|ts[..., fix]|, sgn0(ts[..., fix])) with sign(0) := +1. The sign
+    is a select, so it carries no tangent."""
+    fix = torch.as_tensor(fix, device=ts.device).expand(ts.shape[:-1])
+    tsf = ts.gather(-1, fix[..., None])[..., 0]
+    one = torch.ones_like(tsf)
+    sign = torch.where(tsf >= 0, one, -one)
+    return tsf * sign, sign
+
+
+def mono_batched(poses, feats, g, s, fix):
+    """All per-block mono maps of each lane in one batched call.
+
+    poses [..., M, 6], feats [..., N, 3], g [..., 6], s [..., 3], fix [...].
+    Returns (new_poses — the generic formula, not yet gauge-pinned;
+    new_feats; sign [...]). No invpose lane: the mono reference pose is an
+    explicit block.
+    """
+    t = g[..., 0:3]
+    angs = torch.cat([poses[..., 3:6], g[..., None, 3:6]], dim=-2)
+    Rall = euler_to_r(angs)
+    Rx, Rg = Rall[..., :-1, :, :], Rall[..., -1, :, :]
+    scale, sign = _scale_sign(mat3_vec(Rg, s - t), fix)
+    sc = scale[..., None, None]
+    tp = mat3_vec(Rg[..., None, :, :], poses[..., 0:3] - t[..., None, :]) / sc
+    eulers = r_to_euler(Rx @ Rg.transpose(-1, -2)[..., None, :, :])
+    new_poses = torch.cat([tp, eulers], dim=-1)
+    new_feats = mat3_vec(Rg[..., None, :, :], feats - t[..., None, :]) / sc
+    return new_poses, new_feats, sign
+
+
+def transform_state_mono(pose_ids, poses, feats, new_ref_id, new_scap_id,
+                         new_fix):
+    """Mono re-expression of every slot of each lane; pose ids are unchanged.
+
+    pose_ids [P, M], poses [P, M, 6], feats [P, N, 3], new_ref_id,
+    new_scap_id, new_fix [P]. Returns (poses', feats', sign [P]): the new
+    reference block is exactly 0 and the new scale pose's pinned coordinate
+    exactly `sign`, both written, not computed.
+    """
+    slot_r = first_true(pose_ids == new_ref_id[:, None])
+    slot_s = first_true(pose_ids == new_scap_id[:, None])
+    g = segment.take1(poses, slot_r)
+    s = segment.take1(poses, slot_s)[:, 0:3]
+    new_poses, new_feats, sign = mono_batched(poses, feats, g, s, new_fix)
+    new_poses = segment.put1(new_poses, slot_r, 0.0)
+    pinned = torch.arange(6, device=poses.device) == new_fix[:, None]
+    row = torch.where(pinned, sign[:, None], segment.take1(new_poses, slot_s))
+    return segment.put1(new_poses, slot_s, row), new_feats, sign

@@ -1,36 +1,45 @@
 """Hand-written GPU kernels of the port, their plain versions and their build.
 
-K1 `blockcoo_to_dense` replaces the TPU kernel
-`linearsfm_tpu/ops/pallas_kernels.py:blockcoo_to_dense`; its CUDA source is
-`csrc/blockcoo_dense.cu` (design and bounds are noted there). It is built
-with nvcc for sm_90a into a shared library with a plain C interface, at first
-use, into `_build/` beside the package, and bound with ctypes.
+Each kernel replaces a TPU kernel of `linearsfm_tpu/ops/pallas_kernels.py`;
+its CUDA source under `csrc/` notes its design and what bounds it:
+
+* K1 `blockcoo_to_dense` (`csrc/blockcoo_dense.cu`): dense matrices from
+  block-COO lists, the Schur assembly's scatter;
+* K2 `inv3x3_sym` (`csrc/inv3x3_sym.cu`): the batched closed-form inverse of
+  the symmetric 3x3 feature blocks.
+
+All sources are compiled with nvcc for sm_90a (one process per source, all
+started together) and linked into one shared library with a plain C
+interface, at first use, into `_build/` beside the package, and bound with
+ctypes.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. `launches` counts kernel launches, and only
-those, so a run can show that it went through the kernel.
+those, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import math
 import os
 import shutil
 import subprocess
+import tempfile
 
 import torch
 
 from .segment import lane_ids
 
-launches = {"blockcoo_to_dense": 0}
+launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "blockcoo_dense.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 _lib: ctypes.CDLL | None = None   # loaded once per process
 
 
@@ -42,27 +51,50 @@ def _nvcc() -> str:
                        "linearsfm_tpu_torch/csrc at first use")
 
 
+def _run_all(cmds: list[list[str]]):
+    """Run the commands concurrently; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{err}")
+
+
 def build() -> ctypes.CDLL:
-    """Compile the kernel library (once per source content) and load it."""
+    """Compile the kernel library (once per content of the sources and the
+    flags) and load it."""
     global _lib
     if _lib is not None:
         return _lib
-    with open(SOURCE, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"libblockcoo_dense_{tag}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    tag = h.hexdigest()[:12]
+    so = os.path.join(BUILD_DIR, f"libkernels_{tag}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        # objects live in a private directory, removed on success and failure
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                    for s in SOURCES]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                      for s, o in zip(SOURCES, objs)])
+            lib_tmp = os.path.join(tmp, "libkernels.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+            os.replace(lib_tmp, so)
     lib = ctypes.CDLL(so)
     for fn in (lib.blockcoo_dense_f32, lib.blockcoo_dense_f64):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_int64,
                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.inv3x3_sym_f32, lib.inv3x3_sym_f64):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -152,3 +184,57 @@ def blockcoo_to_dense(rows: torch.Tensor, cols: torch.Tensor,
         raise RuntimeError(f"blockcoo_to_dense: CUDA launch failed (error {err})")
     launches["blockcoo_to_dense"] += 1
     return out.view(lead + (R * M, C * N))
+
+
+def inv3x3_sym_ref(V: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: batched closed-form inverse of symmetric 3x3
+    blocks [..., 3, 3] from their upper triangle; exactly-singular blocks
+    (zero padding) return zero, a NaN determinant gives NaN."""
+    a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
+    d, e, f = V[..., 1, 1], V[..., 1, 2], V[..., 2, 2]
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    det = a * A + b * B + c * C
+    zero = det == 0
+    inv_det = torch.where(zero, torch.zeros_like(det),
+                          1.0 / torch.where(zero, torch.ones_like(det), det))
+    row0 = torch.stack([A, B, C], dim=-1)
+    row1 = torch.stack([B, D, E], dim=-1)
+    row2 = torch.stack([C, E, F], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
+
+
+def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
+    """K2: inverse of every symmetric 3x3 block of V [..., 3, 3].
+
+    Same contract as `inv3x3_sym_ref`, for contiguous float32 (the PCG
+    preconditioner) and float64 (the plain-Cholesky levels) tensors; on a
+    CUDA tensor the kernel equals the plain version bit for bit. An empty
+    batch launches nothing.
+    """
+    if V.device.type == "cpu":
+        return inv3x3_sym_ref(V)
+    if V.device.type != "cuda":
+        raise ValueError(f"inv3x3_sym: no kernel for {V.device}")
+    if V.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"inv3x3_sym: float32/float64 only, got {V.dtype}")
+    if (V.layout != torch.strided or V.dim() < 2 or V.shape[-2:] != (3, 3)
+            or not V.is_contiguous()):
+        raise ValueError("inv3x3_sym: V must be a contiguous [..., 3, 3] "
+                         "tensor")
+    out = torch.empty_like(V)
+    n = V.numel() // 9
+    if n == 0:
+        return out
+    lib = build()
+    fn = lib.inv3x3_sym_f32 if V.dtype == torch.float32 else lib.inv3x3_sym_f64
+    err = fn(V.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream(V.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"inv3x3_sym: CUDA launch failed (error {err})")
+    launches["inv3x3_sym"] += 1
+    return out

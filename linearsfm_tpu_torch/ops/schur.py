@@ -41,23 +41,10 @@ def _bmv_t(a, v):
 
 def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
     """Batched closed-form inverse of symmetric 3x3 blocks; exactly-singular
-    blocks (zero padding) return zero."""
-    a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
-    d, e, f = V[..., 1, 1], V[..., 1, 2], V[..., 2, 2]
-    A = d * f - e * e
-    B = c * e - b * f
-    C = b * e - c * d
-    D = a * f - c * c
-    E = b * c - a * e
-    F = a * d - b * b
-    det = a * A + b * B + c * C
-    zero = det == 0
-    inv_det = torch.where(zero, torch.zeros_like(det),
-                          1.0 / torch.where(zero, torch.ones_like(det), det))
-    row0 = torch.stack([A, B, C], dim=-1)
-    row1 = torch.stack([B, D, E], dim=-1)
-    row2 = torch.stack([C, E, F], dim=-1)
-    return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
+    blocks (zero padding) return zero. Kernel K2 on a CUDA tensor, its plain
+    version on the CPU; unlike the reference, which runs the jnp form in
+    production, every join on the GPU goes through the kernel."""
+    return kernels.inv3x3_sym(V.contiguous())
 
 
 def info_vector(poses, feats, U, Uij, W, Wpf, V):
@@ -231,11 +218,7 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
         freeP = freeP.reshape(P, M, 6)
 
     def pin(xp):
-        if fixc is None:
-            return xp
-        flat = xp.reshape(P, -1).clone()
-        flat[lane, fixc] = sign.to(xp.dtype)
-        return flat.reshape(P, M, 6)
+        return xp if fixc is None else pin_coordinate(xp, fixc, sign)
 
     zero = U.new_zeros(())
     xp0 = pin(sch32(E32).reshape(P, M, 6).to(dt))
@@ -315,6 +298,16 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
                 more = body(more)
             carry = select(esc, more, carry)
     return pin(carry[0]), carry[1], res(carry)
+
+
+def pin_coordinate(xp: torch.Tensor, fixc: torch.Tensor,
+                   sign: torch.Tensor) -> torch.Tensor:
+    """Copy of the poses xp [P, M, 6] with flat coordinate fixc[p] set to
+    sign[p] exactly (the mono scale pin)."""
+    P = xp.shape[0]
+    flat = xp.reshape(P, -1).clone()
+    flat[torch.arange(P, device=xp.device), fixc] = sign.to(xp.dtype)
+    return flat.reshape(xp.shape)
 
 
 def backsub_features(W, Wpf, Vinv, eF, x_poses):
