@@ -11,14 +11,22 @@ Phases, each printing its lines; any failure exits non-zero:
 3. kernel K1 (`blockcoo_to_dense`) against its plain PyTorch version on the
    card: K = 0, padding rows, duplicates, unsorted rows, lane-folded
    batches, float64, and the level-1 and root shapes of the main path,
-   including a feature-chunked stripe. Exact where no two entries share a coordinate,
-   else rtol 1e-6 (plus 1e-6 of the largest magnitude). Median CUDA-event
-   time of each side;
+   including a feature stripe as a list of its own and, as the Schur
+   assembly runs them, column windows of one plan (`coo_plan`): the root
+   stripe and stereo level 10's two stripes. Exact where no two entries
+   share a coordinate, else rtol 1e-6 (plus 1e-6 of the largest
+   magnitude); each line says whether the result was exact. At the
+   main-path shapes, CUDA-event times over loops of calls: the kernel alone on a
+   prebuilt plan, the wrapper (plan + launch), the plain version and the
+   library yardstick (torch.zeros + one index_put_ with accumulate=True on
+   element indices built beforehand), beside the bound: the output's bytes
+   written once plus the entries' read once, over 3.35 TB/s;
 4. kernel K2 (`inv3x3_sym`) against its plain version, exactly
    (`torch.equal`, NaN where the plain version has NaN), in float32 and
    float64: zero, NaN and near-singular blocks, the mono plan's level-1 lane
    stack [1024, 64, 3, 3] and its root join's [1, 11648, 3, 3]. Median
-   CUDA-event time of each side;
+   CUDA-event times (loops of calls) of the kernel, the plain version and
+   torch.linalg.inv (the non-singular cases), beside the bound;
 5. small trees solved on the GPU and on the CPU, by "refine" and by
    "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
    agree to atol 1e-9;
@@ -33,8 +41,9 @@ Phases, each printing its lines; any failure exits non-zero:
    way against the oracle's 0.014352172.
 
 The kernel launch counts are set to 0 just before each main path's timed
-run and read just after it. The line before the last is the kernel record;
-the last line is {"ok": true, "device": {...}}.
+run and read just after it. The line before the last is the kernel record
+(per kernel: launches, max error, kernel, plain, bound and library times at
+the root shape); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -50,19 +59,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE_ATE_2048 = {"stereo": 0.009758730, "mono": 0.014352172}
 
 
-def _median_ms(fn, reps):
+def _loop_ms(fn, reps):
+    """Device time per call: CUDA events around `reps` calls queued back to
+    back (after two warm-up calls), so the host's launch work overlaps the
+    device's; no result is kept alive between calls."""
     import torch
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    for _ in range(2):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# H100 SXM HBM rate and non-tensor f32/f64 peaks (NVIDIA data sheet,
+# 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
 
 def _coo_case(g, P, K, M, N, C, *, pad_every=0, sort_rows=False,
@@ -84,11 +102,16 @@ def _coo_case(g, P, K, M, N, C, *, pad_every=0, sort_rows=False,
         rows = torch.where(z, -1, rows)
     if col_window is not None:   # a feature stripe: entries outside skip
         lo, width = col_window
-        own = (cols >= lo) & (cols < lo + width)
-        rows = torch.where(own, rows, -1)
-        cols = torch.clamp(cols - lo, 0, width - 1)
-        N = width
+        return (*_masked_stripe(rows, cols, lo, width), vals, M, width)
     return rows, cols, vals, M, N
+
+
+def _masked_stripe(rows, cols, lo, width):
+    """A stripe as a list of its own: rows outside [lo, lo + width) masked
+    to -1, columns shifted and clamped (the plain version's input)."""
+    import torch
+    own = (cols >= lo) & (cols < lo + width)
+    return torch.where(own, rows, -1), torch.clamp(cols - lo, 0, width - 1)
 
 
 def _has_duplicates(rows, cols, M, N):
@@ -97,6 +120,30 @@ def _has_duplicates(rows, cols, M, N):
     lane = torch.arange(rows.shape[0], device=rows.device)[:, None]
     key = ((lane * M + rows) * N + cols)[ok]
     return key.numel() != torch.unique(key).numel()
+
+
+def _library_inputs(rows, cols, vals, M, N):
+    """Element indices and values of the valid entries, in list order, for
+    the yardstick torch.zeros + index_put_(accumulate=True)."""
+    import torch
+    P, K, R, C = vals.shape
+    ok = (rows >= 0) & (rows < M) & (cols >= 0) & (cols < N)
+    lane = torch.arange(P, device=rows.device)[:, None]
+    frow = (rows + lane * M)[ok]
+    rr = frow[:, None, None] * R + torch.arange(R, device=rows.device)[:, None]
+    cc = cols[ok][:, None, None] * C + torch.arange(C, device=rows.device)
+    rr, cc = torch.broadcast_tensors(rr, cc)
+    return ((P * M * R, C * N), (rr.reshape(-1), cc.reshape(-1)),
+            vals[ok].reshape(-1))
+
+
+def _k1_bound_ms(P, M, N, R, C, esz, nnz):
+    """Least time of one K1 launch: its output written once plus its
+    entries (values, permutation and column, 4 bytes each) and row offsets
+    read once, over the HBM rate."""
+    out = P * R * M * C * N * esz
+    entries = nnz * (R * C * esz + 8) + (P * M + 1) * 4
+    return (out + entries) / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernels():
@@ -127,39 +174,106 @@ def phase_kernels():
                                        sort_rows=True, zero_frac=0.03,
                                        col_window=(2928, 2928)),
     }
-    timed = ("level1 A 6x6", "level1 W 6x3", "root A 6x6", "root W stripe 6x3")
+    # stripes densified as the Schur assembly does: one plan of the whole
+    # W list, one launch per window (name: list, windows)
+    windowed = {
+        "root W stripe 6x3 (plan)": (
+            _coo_case(g, 1, 196320, 2048, 11712, 3, sort_rows=True,
+                      zero_frac=0.03), [(2928, 2928)]),
+        # stereo level 10: 2 pair lanes, Mo = 1024, No = 7712 in 2 stripes
+        # of 3,856, 2 x 44,800 W blocks per lane
+        "level10 W stripes 6x3 (plan)": (
+            _coo_case(g, 2, 89600, 1024, 7712, 3, sort_rows=True,
+                      zero_frac=0.03), [(0, 3856), (3856, 3856)]),
+    }
+    timed = ("level1 A 6x6", "level1 W 6x3", "root A 6x6",
+             "root W stripe 6x3 (plan)", "level10 W stripes 6x3 (plan)")
     max_err = 0.0
     times = {}
+
+    def check(name, got, ref, dup):
+        nonlocal max_err
+        err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        max_err = max(max_err, err)
+        exact = torch.equal(got, ref)
+        if dup:
+            scale = float(ref.abs().max())
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * scale)
+        elif not exact:
+            raise AssertionError(f"K1 {name}: not exact, max err {err}")
+        print(f"k1 {name}: out {list(got.shape)} max_abs_err={err:.3e} "
+              f"duplicates={'yes' if dup else 'no'} "
+              f"{'exact' if exact else 'within rtol 1e-6'} ok", flush=True)
+
+    def timing(name, kernel, wrapper, plain, library, bound):
+        # alternate plain, kernel, kernel, plain (wrapper and yardstick
+        # between the two kernel rounds)
+        reps = 10
+        p1 = _loop_ms(plain, reps)
+        k1 = _loop_ms(kernel, reps)
+        w = _loop_ms(wrapper, reps)
+        lib = _loop_ms(library, reps)
+        k2 = _loop_ms(kernel, reps)
+        p2 = _loop_ms(plain, reps)
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, wrapper_ms=w,
+                           library_ms=lib, bound_ms=bound)
+        print(f"k1 time {name}: kernel {k1:.4f}/{k2:.4f} ms on a prebuilt "
+              f"plan, wrapper {w:.4f} ms, bound {bound:.4f} ms (bytes) = "
+              f"{bound / ms:.1%} of the kernel's time, "
+              f"{bound / w:.1%} of the wrapper's; library (zeros + "
+              f"index_put_) {lib:.4f} ms; plain {p1:.3f}/{p2:.3f} ms "
+              f"(loops of {reps})", flush=True)
+
     for name, (rows, cols, vals, M, N) in cases.items():
         got = kernels.blockcoo_to_dense(rows, cols, vals, M, N)
         ref = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max()) if ref.numel() else 0.0
-        max_err = max(max_err, err)
-        dup = _has_duplicates(rows, cols, M, N)
-        if dup:
-            scale = float(ref.abs().max())
-            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * scale)
-        elif not torch.equal(got, ref):
-            raise AssertionError(f"K1 {name}: not exact, max err {err}")
-        print(f"k1 {name}: out {list(got.shape)} K={rows.shape[-1]} "
-              f"max_abs_err={err:.3e} "
-              f"({'rtol 1e-6' if dup else 'exact'}) ok", flush=True)
-        if name in timed:
-            # alternate plain, kernel, kernel, plain
-            reps = 10
-            p1 = _median_ms(lambda: kernels.blockcoo_to_dense_ref(
-                rows, cols, vals, M, N), reps)
-            k1 = _median_ms(lambda: kernels.blockcoo_to_dense(
-                rows, cols, vals, M, N), reps)
-            k2 = _median_ms(lambda: kernels.blockcoo_to_dense(
-                rows, cols, vals, M, N), reps)
-            p2 = _median_ms(lambda: kernels.blockcoo_to_dense_ref(
-                rows, cols, vals, M, N), reps)
-            times[name] = (min(k1, k2), min(p1, p2))
-            print(f"k1 time {name}: kernel {k1:.3f}/{k2:.3f} ms, "
-                  f"plain {p1:.3f}/{p2:.3f} ms (median of {reps})", flush=True)
+        check(name, got, ref, _has_duplicates(rows, cols, M, N))
         del got, ref
+        if name not in timed:
+            continue
+        plan = kernels.coo_plan(rows, cols, M, N)
+        shape, idx, v = _library_inputs(rows, cols, vals, M, N)
+        P, _, R, C = vals.shape
+        timing(name,
+               lambda: kernels.blockcoo_to_dense_planned(plan, vals),
+               lambda: kernels.blockcoo_to_dense(rows, cols, vals, M, N),
+               lambda: kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N),
+               lambda: torch.zeros(shape, device="cuda",
+                                   dtype=vals.dtype).index_put_(
+                   idx, v, accumulate=True),
+               _k1_bound_ms(P, M, N, R, C, vals.element_size(),
+                            int(idx[0].numel()) // (R * C)))
+        del plan, idx, v
+
+    for name, ((rows, cols, vals, M, N), wins) in windowed.items():
+        plan = kernels.coo_plan(rows, cols, M, N)
+        for lo, width in wins:
+            srows, scols = _masked_stripe(rows, cols, lo, width)
+            got = kernels.blockcoo_to_dense_planned(plan, vals, lo, width)
+            ref = kernels.blockcoo_to_dense_ref(srows, scols, vals, M, width)
+            torch.cuda.synchronize()
+            check(f"{name} window [{lo}, {lo + width})", got, ref,
+                  _has_duplicates(srows, scols, M, width))
+            del got, ref
+        lo, width = wins[0]
+        srows, scols = _masked_stripe(rows, cols, lo, width)
+        shape, idx, v = _library_inputs(srows, scols, vals, M, width)
+        P, _, R, C = vals.shape
+        # the wrapper: a plan of the stripe's own list and one launch
+        timing(name,
+               lambda: kernels.blockcoo_to_dense_planned(plan, vals, lo,
+                                                         width),
+               lambda: kernels.blockcoo_to_dense(srows, scols, vals, M, width),
+               lambda: kernels.blockcoo_to_dense_ref(srows, scols, vals, M,
+                                                     width),
+               lambda: torch.zeros(shape, device="cuda",
+                                   dtype=vals.dtype).index_put_(
+                   idx, v, accumulate=True),
+               _k1_bound_ms(P, M, width, R, C, vals.element_size(),
+                            int(idx[0].numel()) // (R * C)))
+        del plan, idx, v
     return max_err, times
 
 
@@ -208,14 +322,29 @@ def phase_k2():
                   f"(torch.equal) ok", flush=True)
             if name == "special":
                 continue
+            # least time: the upper triangle read and the 9 values written
+            # once (bytes) or 33 operations a block at the card's
+            # non-tensor peak, whichever is larger
+            n, esz = V.numel() // 9, V.element_size()
+            peak = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
+            by_bytes = n * 15 * esz / HBM_BYTES_PER_S * 1e3
+            by_ops = n * 33 / peak * 1e3
+            bound = max(by_bytes, by_ops)
             reps = 20
-            p1 = _median_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
-            k1 = _median_ms(lambda: kernels.inv3x3_sym(V), reps)
-            k2 = _median_ms(lambda: kernels.inv3x3_sym(V), reps)
-            p2 = _median_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
-            times[(name, dn)] = (min(k1, k2), min(p1, p2))
-            print(f"k2 time {name} {dn}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                  f"{p1:.4f}/{p2:.4f} ms (median of {reps})", flush=True)
+            p1 = _loop_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
+            k1 = _loop_ms(lambda: kernels.inv3x3_sym(V), reps)
+            lib = _loop_ms(lambda: torch.linalg.inv(V), reps)
+            k2 = _loop_ms(lambda: kernels.inv3x3_sym(V), reps)
+            p2 = _loop_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
+            times[(name, dn)] = dict(
+                ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                bound_ms=bound,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+            print(f"k2 time {name} {dn}: kernel {k1:.4f}/{k2:.4f} ms, bound "
+                  f"{bound:.5f} ms ({times[(name, dn)]['bound_by']}) = "
+                  f"{bound / min(k1, k2):.1%}; library (torch.linalg.inv) "
+                  f"{lib:.4f} ms; plain {p1:.4f}/{p2:.4f} ms (loops of "
+                  f"{reps})", flush=True)
     return max_err, times
 
 
@@ -349,19 +478,21 @@ def main() -> int:
     phase_small_trees()
     paths = {d: phase_main_path(d) for d in ("stereo", "mono")}
 
-    def record(name, source, replaces, max_err, times):
-        ms, plain_ms = times
+    def record(name, source, replaces, max_err, t):
         by_path = {d: c[name] for d, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_err,
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t.get("bound_by", "bytes"),
+                "library_ms": t["library_ms"]}
 
     print(json.dumps({"kernels": [
         record("blockcoo_to_dense",
                "linearsfm_tpu_torch/csrc/blockcoo_dense.cu",
                "linearsfm_tpu/ops/pallas_kernels.py:156", k1_err,
-               k1_times["root W stripe 6x3"]),
+               k1_times["root W stripe 6x3 (plan)"]),
         record("inv3x3_sym", "linearsfm_tpu_torch/csrc/inv3x3_sym.cu",
                "linearsfm_tpu/ops/pallas_kernels.py:57", k2_err,
                k2_times[("root [1, 11648]", "float32")])]}), flush=True)

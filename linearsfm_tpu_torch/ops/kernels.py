@@ -4,7 +4,8 @@ Each kernel replaces a TPU kernel of `linearsfm_tpu/ops/pallas_kernels.py`;
 its CUDA source under `csrc/` notes its design and what bounds it:
 
 * K1 `blockcoo_to_dense` (`csrc/blockcoo_dense.cu`): dense matrices from
-  block-COO lists, the Schur assembly's scatter;
+  block-COO lists, the Schur assembly's scatter; `coo_plan` sorts a list
+  once and `blockcoo_to_dense_planned` launches K1 on a column window of it;
 * K2 `inv3x3_sym` (`csrc/inv3x3_sym.cu`): the batched closed-form inverse of
   the symmetric 3x3 feature blocks.
 
@@ -28,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -88,8 +90,9 @@ def build() -> ctypes.CDLL:
             os.replace(lib_tmp, so)
     lib = ctypes.CDLL(so)
     for fn in (lib.blockcoo_dense_f32, lib.blockcoo_dense_f64):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_int64,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+                                               ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int64, ctypes.c_int64,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.inv3x3_sym_f32, lib.inv3x3_sym_f64):
@@ -131,17 +134,72 @@ def blockcoo_to_dense_ref(rows: torch.Tensor, cols: torch.Tensor,
     return out[:P * M * R].view(lead + (R * M, C * N))
 
 
-def blockcoo_to_dense(rows: torch.Tensor, cols: torch.Tensor,
-                      vals: torch.Tensor, M: int, N: int) -> torch.Tensor:
-    """K1: dense [..., R*M, C*N] from block-COO lists (scatter-add).
+class CooPlan(NamedTuple):
+    """One block list sorted for K1 (`coo_plan`); any number of launches,
+    each on a column window, reuse it."""
+    rows: torch.Tensor      # [..., K] as given (the plain version reads them)
+    cols: torch.Tensor
+    perm: torch.Tensor      # int32 [P*K]: flat entry index of each position
+    scol: torch.Tensor      # int32 [P*K]: block column of each position
+    row_ptr: torch.Tensor   # int32 [P*M + 1]: CSR offsets per folded row
+    M: int
+    N: int
 
-    Same contract as `blockcoo_to_dense_ref`, for float32 (the main path)
-    and float64 values. On a CUDA tensor each lane's rows are folded into one
-    tall matrix (row + lane*M; skipped entries stay out) and the CUDA kernel
-    writes it in one launch.
+
+def coo_plan(rows: torch.Tensor, cols: torch.Tensor, M: int,
+             N: int) -> CooPlan:
+    """Sort a (lane-stacked) block list once for K1.
+
+    One stable sort of the key (lane*M + row)*N + col, entries out of range
+    (row < 0 is padding) last: `perm` lists the entries block row by block
+    row (lanes folded: row + lane*M), each row's entries by column, and the
+    duplicates of a coordinate next to each other in list order. `row_ptr`
+    holds each folded row's first sorted position. The same code runs on the
+    CPU (the tests check it there) and on the card.
     """
+    if rows.is_floating_point() or cols.is_floating_point():
+        raise TypeError("coo_plan: integer block coordinates only")
+    if cols.shape != rows.shape or rows.dim() < 1:
+        raise ValueError("coo_plan: rows and cols must be [..., K] alike")
+    if cols.device != rows.device:
+        raise ValueError("coo_plan: rows and cols on different devices")
+    K = rows.shape[-1]
+    P = math.prod(rows.shape[:-1])
+    dev = rows.device
+    if P * K >= 2**31 or P * M >= 2**31:
+        raise ValueError("coo_plan: more than 2**31 entries or block rows")
+    r = rows.reshape(P, K).to(torch.int64)
+    c = cols.reshape(P, K).to(torch.int64)
+    key = torch.where(_valid(r, c, M, N), (r + lane_ids(P, dev) * M) * N + c,
+                      P * M * N).reshape(-1)
+    skey, perm = torch.sort(key, stable=True)
+    row_ptr = torch.searchsorted(
+        skey, torch.arange(P * M + 1, device=dev, dtype=torch.int64) * N,
+        out_int32=True)
+    scol = torch.remainder(skey, max(N, 1)).to(torch.int32)
+    return CooPlan(rows, cols, perm.to(torch.int32), scol, row_ptr, M, N)
+
+
+def blockcoo_to_dense_planned(plan: CooPlan, vals: torch.Tensor,
+                              col_lo: int = 0,
+                              width: int | None = None) -> torch.Tensor:
+    """K1 on a plan: dense [..., R*M, C*width] from the plan's entries whose
+    block column lies in [col_lo, col_lo + width) (default: all N columns);
+    column c lands at c - col_lo. vals [..., K, R, C] matches the plan's
+    list.
+
+    On the CPU: the plain version over the list with the other entries
+    masked out. On a CUDA tensor: one launch of the kernel, into an output
+    allocated with torch.empty (the kernel writes every element).
+    """
+    if width is None:
+        width = plan.N - col_lo
     if vals.device.type == "cpu":
-        return blockcoo_to_dense_ref(rows, cols, vals, M, N)
+        rows, cols = plan.rows, plan.cols
+        if col_lo or width != plan.N:
+            rows = torch.where(cols < plan.N, rows, -1)
+            cols = cols - col_lo
+        return blockcoo_to_dense_ref(rows, cols, vals, plan.M, width)
     if vals.device.type != "cuda":
         raise ValueError(f"blockcoo_to_dense: no kernel for {vals.device}")
     if vals.dtype not in (torch.float32, torch.float64):
@@ -153,37 +211,56 @@ def blockcoo_to_dense(rows: torch.Tensor, cols: torch.Tensor,
     K, R, C = vals.shape[-3:]
     if R * C > 64:
         raise ValueError(f"blockcoo_to_dense: {R}x{C} blocks exceed 64 elements")
-    if rows.shape != vals.shape[:-2] or cols.shape != rows.shape:
-        raise ValueError("blockcoo_to_dense: rows/cols must match vals[..., K]")
-    if rows.is_floating_point() or cols.is_floating_point():
-        raise TypeError("blockcoo_to_dense: integer block coordinates only")
-    if rows.device != vals.device or cols.device != vals.device:
-        raise ValueError("blockcoo_to_dense: operands on different devices")
-    lead = rows.shape[:-1]
-    P = math.prod(lead)
-    rows2 = rows.reshape(P, K).to(torch.int64)
-    cols2 = cols.reshape(P, K).to(torch.int64)
-    out = torch.zeros((P * R * M, C * N), dtype=vals.dtype,
+    if plan.rows.shape != vals.shape[:-2]:
+        raise ValueError("blockcoo_to_dense: the plan's rows/cols must match "
+                         "vals[..., K]")
+    if vals.numel() >= 2**31:
+        raise ValueError("blockcoo_to_dense: more than 2**31 values")
+    if plan.perm.device != vals.device:
+        raise ValueError("blockcoo_to_dense: plan and vals on different "
+                         "devices")
+    if col_lo < 0 or width < 0:
+        raise ValueError("blockcoo_to_dense: negative column window")
+    lead = plan.rows.shape[:-1]
+    P, M = math.prod(lead), plan.M
+    shape = lead + (R * M, C * width)
+    if K == 0:
+        return torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+    out = torch.empty((P * R * M, C * width), dtype=vals.dtype,
                       device=vals.device)
-    if K == 0 or P == 0 or M == 0 or N == 0:
-        return out.view(lead + (R * M, C * N))
-    ok = _valid(rows2, cols2, M, N)
-    frow = torch.where(ok, rows2 + lane_ids(P, vals.device) * M, -1)
-    srt, perm = torch.sort(frow.reshape(-1), stable=True)
-    row_ptr = torch.searchsorted(
-        srt, torch.arange(P * M + 1, device=vals.device, dtype=torch.int64))
-    cols_flat = cols2.reshape(-1).contiguous()
+    if out.numel() == 0:
+        return out.view(shape)
     lib = build()
     fn = (lib.blockcoo_dense_f32 if vals.dtype == torch.float32
           else lib.blockcoo_dense_f64)
-    err = fn(
-        row_ptr.data_ptr(), perm.data_ptr(), cols_flat.data_ptr(),
-        vals.data_ptr(), out.data_ptr(), P * M, R, C, C * N,
-        torch.cuda.current_stream(vals.device).cuda_stream)
+    err = fn(plan.row_ptr.data_ptr(), plan.perm.data_ptr(),
+             plan.scol.data_ptr(), vals.data_ptr(), out.data_ptr(), P * M,
+             plan.N, R, C, col_lo, width,
+             torch.cuda.current_stream(vals.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blockcoo_to_dense: CUDA launch failed (error {err})")
     launches["blockcoo_to_dense"] += 1
-    return out.view(lead + (R * M, C * N))
+    return out.view(shape)
+
+
+def blockcoo_to_dense(rows: torch.Tensor, cols: torch.Tensor,
+                      vals: torch.Tensor, M: int, N: int) -> torch.Tensor:
+    """K1: dense [..., R*M, C*N] from block-COO lists (scatter-add).
+
+    Same contract as `blockcoo_to_dense_ref`, for float32 (the main path)
+    and float64 values. On a CUDA tensor: a plan (`coo_plan`) and one launch
+    (`blockcoo_to_dense_planned`); each lane's rows are folded into one tall
+    matrix (row + lane*M; skipped entries stay out).
+    """
+    if vals.device.type == "cpu":
+        return blockcoo_to_dense_ref(rows, cols, vals, M, N)
+    if rows.shape != vals.shape[:-2]:
+        raise ValueError("blockcoo_to_dense: rows/cols must match vals[..., K]")
+    if rows.device != vals.device:
+        raise ValueError("blockcoo_to_dense: operands on different devices")
+    if vals.device.type != "cuda":
+        raise ValueError(f"blockcoo_to_dense: no kernel for {vals.device}")
+    return blockcoo_to_dense_planned(coo_plan(rows, cols, M, N), vals)
 
 
 def inv3x3_sym_ref(V: torch.Tensor) -> torch.Tensor:

@@ -68,7 +68,10 @@ def info_vector(poses, feats, U, Uij, W, Wpf, V):
 # Dense [P, R*M, C*N] from lane-stacked block-COO lists (scatter-add, rows < 0
 # skipped): kernel K1 on a CUDA tensor, its plain version on the CPU. Unlike
 # the reference, whose TPU kernel is float32-only, float64 lists use it too.
+# densify_planned is K1 on a list sorted once (kernels.coo_plan), for lists
+# that are densified more than once or in column windows.
 densify_blocks = kernels.blockcoo_to_dense
+densify_planned = kernels.blockcoo_to_dense_planned
 
 
 def _require_full_f32(device: torch.device):
@@ -79,29 +82,35 @@ def _require_full_f32(device: torch.device):
                            "False: the Schur preconditioner needs full f32")
 
 
-def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int):
+def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int, Yb=None):
     """S [P, 6M, 6M] = A - (W Vinv) W^T and E [P, 6M] = eP - (W Vinv) eF,
     through dense [6M, 3N] layouts of W and Y = W Vinv.
 
-    float32 (the preconditioner side): zero-valued entries are routed to
-    row -1, and A's symmetric completion is D + D^T with the double-counted
-    diagonal blocks taken off (`sym_complete`). Above `dense_w_bytes()` per
-    lane the feature axis is cut into stripes: S and E accumulate stripe by
-    stripe, bounding the live set by two stripes. float64 (the plain-Cholesky
-    levels) densifies A's transposed blocks directly, as the reference does.
+    Yb: the blocks W @ Vinv[wf], computed here when not given. The W list
+    is sorted once (`kernels.coo_plan`): Wd, Yd and every feature stripe of
+    both densify that one plan. float32 (the preconditioner side):
+    zero-valued entries are routed to row -1, and A's symmetric completion
+    is D + D^T with the double-counted diagonal blocks taken off
+    (`sym_complete`). Above `dense_w_bytes()` per lane the feature axis is
+    cut into stripes, column windows of the plan: S and E accumulate stripe
+    by stripe, bounding the live set by two stripes. float64 (the
+    plain-Cholesky levels) densifies A's transposed blocks directly, as the
+    reference does.
     """
     P, N = Vinv.shape[0], Vinv.shape[1]
     dtype, dev = U.dtype, U.device
     ui, uj = Uij[..., 0], Uij[..., 1]
     wp, wf = Wpf[..., 0], Wpf[..., 1]
-    Yb = W @ take(Vinv, wf)
+    if Yb is None:
+        Yb = W @ take(Vinv, wf)
 
     if dtype != torch.float32:
         A = densify_blocks(ui, uj, U, M, M)
         Uo = torch.where((ui != uj)[..., None, None], U, U.new_zeros(()))
         A += densify_blocks(uj, ui, Uo.transpose(-1, -2).contiguous(), M, M)
-        Wd = densify_blocks(wp, wf, W, M, N)
-        Yd = densify_blocks(wp, wf, Yb, M, N)
+        wplan = kernels.coo_plan(wp, wf, M, N)
+        Wd = densify_planned(wplan, W)
+        Yd = densify_planned(wplan, Yb)
         S = A - Yd @ Wd.transpose(-1, -2)
         E = eP.reshape(P, -1) - _bmv(Yd, eF.reshape(P, -1))
         return S, E
@@ -127,13 +136,13 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int):
     # zero-valued entries (list padding, dropped couplings) go to row -1
     urow = torch.where((U != 0).any(dim=(-1, -2)), ui, -1)
     S = sym_complete(densify_blocks(urow, uj, U, M, M), urow)
-    wvalid = (W != 0).any(dim=(-1, -2))
+    wplan = kernels.coo_plan(torch.where((W != 0).any(dim=(-1, -2)), wp, -1),
+                             wf, M, N)
     E = eP.reshape(P, -1).to(dtype)
     budget = dense_w_bytes()
     if 6 * M * 3 * N * 4 <= budget:
-        wrow = torch.where(wvalid, wp, -1)
-        Wd = densify_blocks(wrow, wf, W, M, N)
-        Yd = densify_blocks(wrow, wf, Yb, M, N)
+        Wd = densify_planned(wplan, W)
+        Yd = densify_planned(wplan, Yb)
         # in place: S is [12288, 12288] f32 (0.6 GB) at the 2,048-map root
         S.baddbmm_(Yd, Wd.transpose(-1, -2), alpha=-1.0)
         return S, E - _bmv(Yd, eF.reshape(P, -1))
@@ -144,11 +153,8 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int):
     eFp = torch.nn.functional.pad(eF, (0, 0, 0, Nc * nch - N))
     for c in range(nch):
         lo = c * Nc
-        own = wvalid & (wf >= lo) & (wf < lo + Nc)
-        wrow = torch.where(own, wp, -1)
-        wcol = torch.clamp(wf - lo, 0, Nc - 1)
-        Wd = densify_blocks(wrow, wcol, W, M, Nc)
-        Yd = densify_blocks(wrow, wcol, Yb, M, Nc)
+        Wd = densify_planned(wplan, W, lo, Nc)
+        Yd = densify_planned(wplan, Yb, lo, Nc)
         S.baddbmm_(Yd, Wd.transpose(-1, -2), alpha=-1.0)
         E = E - _bmv(Yd, eFp[:, lo:lo + Nc].reshape(P, -1))
         del Wd, Yd
@@ -192,8 +198,9 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
 
     U32, W32, V32 = U.to(f32), W.to(f32), V.to(f32)
     Vinv32 = inv3x3_sym(V32)
+    Y32 = W32 @ take(Vinv32, wf)      # the assembly's Yb and the PCG's Y
     S32, E32 = _assemble_schur_dense(U32, Uij, W32, Wpf, Vinv32, eP.to(f32),
-                                     eF.to(f32), M)
+                                     eF.to(f32), M, Yb=Y32)
     if fixc is not None:
         E32 = E32 - S32[lane, :, fixc] * sign.to(f32)[:, None]
     S32, E32 = solve.mask_gauge(S32, E32, fixed_mask)
@@ -223,7 +230,6 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     zero = U.new_zeros(())
     xp0 = pin(sch32(E32).reshape(P, M, 6).to(dt))
     xf0 = backsub_features(W32, Wpf, Vinv32, eF.to(f32), xp0.to(f32)).to(dt)
-    Y32 = W32 @ take(Vinv32, wf)
 
     def precond(rP, rF):
         """M^{-1} r with the f32 Schur factor; zero at fixed coordinates."""

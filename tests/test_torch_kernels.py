@@ -6,11 +6,19 @@
 * K2's plain version against the reference's `schur.inv3x3_sym` and its
   Pallas kernel in interpret mode (tests/test_pallas.py inputs, float32, a
   NaN block, a lane stack);
+* K1's plan (`coo_plan`): every column window gathered through the plan's
+  CSR offsets and binary-searched sub-ranges densifies, exactly, to the
+  plain version over the masked and clamped list the Schur assembly used to
+  build per feature stripe; the planned call on the CPU equals the plain
+  version;
 * the wrappers' dispatch: CPU tensors take the plain version and count no
   launch; a device without a kernel raises instead of falling back;
 * the port imports neither jax nor the reference package;
 * on a CUDA card (marker `cuda`), each kernel against its plain version in
-  float32 and float64.
+  float32 and float64; K1 also at tile edges (widths that are not a
+  multiple of the tile width, block rows that are not a multiple of the
+  tile's, rows whose bytes are not a multiple of 16), on stripe windows of
+  one plan, with one launch per planned call.
 
 JAX is imported inside the tests that compare with it, so that the `cuda`
 test runs where jax is not installed:
@@ -120,6 +128,105 @@ def test_wrapper_dispatch_counts_only_kernel_launches():
     idx = torch.zeros(3, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         kernels.blockcoo_to_dense(idx, idx, meta, 2, 2)
+
+
+# lists as the Schur assembly's W lists: padding (-1), rows past M, many
+# duplicate coordinates, unsorted rows, and lanes (name, P, M, N, K, C, dtype)
+PLAN_CASES = [("6x3 one lane", 1, 9, 23, 160, 3, np.float32),
+              ("6x3 three lanes", 3, 7, 23, 90, 3, np.float32),
+              ("6x6 two lanes float64", 2, 5, 11, 70, 6, np.float64)]
+
+
+def _plan_list(P, M, N, K, C, dtype, seed=47):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-1, M + 1, (P, K))          # -1 padding, M past the end
+    cols = rng.integers(0, N, (P, K))
+    dup = rng.integers(0, K, K // 4)                # repeat some coordinates
+    rows[:, dup[1:]], cols[:, dup[1:]] = rows[:, dup[:-1]], cols[:, dup[:-1]]
+    vals = rng.normal(size=(P, K, 6, C)).astype(dtype)
+    return rows, cols, vals
+
+
+def _windows(N):
+    """The whole width and stripes as `_assemble_schur_dense` cuts them
+    (the last one reaching past N), plus an odd window."""
+    Nc = -(-N // 3)
+    return [(0, N)] + [(lo, Nc) for lo in range(0, N, Nc)] + [(2, 3)]
+
+
+def _dense_through_plan(plan, vals, lo, width):
+    """Densify window [lo, lo + width) from the plan alone: in each folded
+    block row, the entries of the window are the sub-range of the row's CSR
+    range found by binary search in the sorted columns; add them in sorted
+    order (numpy, no kernel)."""
+    perm, scol, ptr = (t.numpy() for t in (plan.perm, plan.scol,
+                                            plan.row_ptr))
+    R, C = vals.shape[-2:]
+    flat = vals.reshape(-1, R, C)
+    PM = len(ptr) - 1
+    out = np.zeros((PM * R, C * width), vals.dtype)
+    for b in range(PM):
+        a, e = ptr[b], ptr[b + 1]
+        s0 = a + np.searchsorted(scol[a:e], lo)
+        s1 = a + np.searchsorted(scol[a:e], lo + width)
+        for s in range(s0, s1):
+            c = scol[s] - lo
+            out[b * R:(b + 1) * R, c * C:(c + 1) * C] += flat[perm[s]]
+    return out.reshape(vals.shape[:-3] + (R * plan.M, C * width))
+
+
+def _masked_stripe(rows, cols, lo, width):
+    """The stripe list `_assemble_schur_dense` built before the plan: rows
+    outside the window masked to -1, columns shifted and clamped."""
+    own = (cols >= lo) & (cols < lo + width)
+    return (torch.where(own, rows, -1),
+            torch.clamp(cols - lo, 0, width - 1))
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
+def test_plan_windows_match_masked_lists(case):
+    """Exact: each window gathered through the plan equals the plain
+    version over the masked and clamped list; the plan is a stable sort by
+    (folded row, column) with the skipped entries last."""
+    _, P, M, N, K, C, dtype = case
+    rows, cols, vals = _plan_list(P, M, N, K, C, dtype)
+    rows_t, cols_t = torch.from_numpy(rows), torch.from_numpy(cols)
+    plan = kernels.coo_plan(rows_t, cols_t, M, N)
+    ok = (rows >= 0) & (rows < M)
+    key = np.where(ok, (rows + np.arange(P)[:, None] * M) * N + cols,
+                   P * M * N).reshape(-1)
+    np.testing.assert_array_equal(plan.perm.numpy(),
+                                  np.argsort(key, kind="stable"))
+    ptr = plan.row_ptr.numpy()
+    assert ptr[0] == 0 and ptr[-1] == ok.sum() and (np.diff(ptr) >= 0).all()
+    assert plan.perm.dtype == plan.scol.dtype == plan.row_ptr.dtype \
+        == torch.int32
+    for lo, width in _windows(N):
+        want = kernels.blockcoo_to_dense_ref(
+            *_masked_stripe(rows_t, cols_t, lo, width),
+            torch.from_numpy(vals), M, width)
+        got = _dense_through_plan(plan, vals, lo, width)
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{lo}")
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
+def test_planned_cpu_matches_plain(case):
+    """On the CPU the planned call is the plain version over the window's
+    entries (exact), launches nothing, and the one-shot wrapper equals it."""
+    _, P, M, N, K, C, dtype = case
+    rows, cols, vals = (torch.from_numpy(a) for a in
+                        _plan_list(P, M, N, K, C, dtype))
+    plan = kernels.coo_plan(rows, cols, M, N)
+    before = dict(kernels.launches)
+    for lo, width in _windows(N):
+        got = kernels.blockcoo_to_dense_planned(plan, vals, lo, width)
+        want = kernels.blockcoo_to_dense_ref(
+            *_masked_stripe(rows, cols, lo, width), vals, M, width)
+        assert got.shape == (P, 6 * M, C * width)
+        assert torch.equal(got, want), (lo, width)
+    assert torch.equal(kernels.blockcoo_to_dense_planned(plan, vals),
+                       kernels.blockcoo_to_dense(rows, cols, vals, M, N))
+    assert kernels.launches == before
 
 
 def _inv3x3_input(name):
@@ -276,3 +383,68 @@ def test_inv3x3_kernel_matches_plain_on_cuda(dtype):
         kernels.inv3x3_sym(V.transpose(0, 1))
     with pytest.raises(TypeError):
         kernels.inv3x3_sym(V.to(torch.float16))
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+# (name, P, M, N, K, C): M = 37 is no multiple of the tile's block rows;
+# 3 * 53 f32 columns make rows of 636 bytes (plain-store branch); 3 * 100
+# and 6 * 70 columns are no multiple of the tile width (192 f32 / 96 f64)
+EDGE_CASES = [("6x3 M37 N53 plain stores", 1, 37, 53, 700, 3),
+              ("6x3 M37 N100 ragged tiles", 2, 37, 100, 900, 3),
+              ("6x6 M45 N70 ragged tiles", 3, 45, 70, 500, 6),
+              ("6x3 one block row", 1, 1, 400, 300, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c[0])
+def test_planned_kernel_tile_edges_on_cuda(case, dtype):
+    """On the card, K1 on a plan equals a sequential scatter-add in list
+    order on the host exactly (both add each coordinate's duplicates in list
+    order), at tile edges and on stripe windows of one plan; one launch per
+    planned call. (The plain version on the CPU may add float32 duplicates
+    with parallel atomics once a list has 32,768 elements, so it is not the
+    yardstick of order here.)"""
+    _needs_card()
+    _, P, M, N, K, C = case
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    rows, cols, vals = (torch.from_numpy(a) for a in
+                        _plan_list(P, M, N, K, C, np_dtype, seed=M + N))
+    plan = kernels.coo_plan(rows.cuda(), cols.cuda(), M, N)
+    vals_d = vals.cuda()
+    for lo, width in _windows(N):
+        n0 = kernels.launches["blockcoo_to_dense"]
+        got = kernels.blockcoo_to_dense_planned(plan, vals_d, lo, width)
+        torch.cuda.synchronize()
+        assert kernels.launches["blockcoo_to_dense"] == n0 + 1
+        srows, scols = _masked_stripe(rows, cols, lo, width)
+        want = np.stack([_dense_loop(srows[p].numpy(), scols[p].numpy(),
+                                     vals[p].numpy(), M, width)
+                         for p in range(P)])
+        np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                      err_msg=f"{(lo, width)}")
+    with pytest.raises(ValueError, match="match"):
+        kernels.blockcoo_to_dense_planned(plan, vals_d[:, :-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_planned_kernel_main_path_stripe_on_cuda():
+    """A root-sized stripe: 2,048 block rows, a 2,928-feature window of
+    11,712 columns (f32 rows of 35,136 bytes, 45.75 tiles wide), equal to
+    the plain version on the card (exact: no duplicate coordinates)."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    M, N, K = 2048, 11712, 60000
+    key = torch.randperm(M * N, generator=g, device="cuda")[:K]
+    rows, cols = (key // N)[None], (key % N)[None]
+    rows[:, ::17] = -1
+    vals = torch.randn((1, K, 6, 3), generator=g, device="cuda")
+    plan = kernels.coo_plan(rows, cols, M, N)
+    got = kernels.blockcoo_to_dense_planned(plan, vals, 2928, 2928)
+    want = kernels.blockcoo_to_dense_ref(
+        *_masked_stripe(rows, cols, 2928, 2928), vals, M, 2928)
+    assert torch.equal(got, want)
