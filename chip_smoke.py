@@ -16,34 +16,45 @@ Phases, each printing its lines; any failure exits non-zero:
    stripe and stereo level 10's two stripes. Exact where no two entries
    share a coordinate, else rtol 1e-6 (plus 1e-6 of the largest
    magnitude); each line says whether the result was exact. At the
-   main-path shapes, CUDA-event times over loops of calls: the kernel alone on a
-   prebuilt plan, the wrapper (plan + launch), the plain version and the
+   main-path shapes, CUDA-event times over loops of calls: the kernel alone
+   on a prebuilt plan (and its device time, as phase 4 takes it), the
+   wrapper (plan + launch), the plain version and the
    library yardstick (torch.zeros + one index_put_ with accumulate=True on
    element indices built beforehand), beside the bound: the output's bytes
    written once plus the entries' read once, over 3.35 TB/s;
-4. kernel K2 (`inv3x3_sym`) against its plain version, exactly
-   (`torch.equal`, NaN where the plain version has NaN), in float32 and
-   float64: zero, NaN and near-singular blocks, the mono plan's level-1 lane
-   stack [1024, 64, 3, 3] and its root join's [1, 11648, 3, 3]. Median
-   CUDA-event times (loops of calls) of the kernel, the plain version and
-   torch.linalg.inv (the non-singular cases), beside the bound;
+4. kernel K2, fused (`inv3x3_wy`: the inverses V^-1 of the feature blocks
+   and Y = W V^-1[wf] in one launch; `inv3x3_sym` is the launch with K = 0)
+   against its plain versions, exactly (`torch.equal`, NaN where the plain
+   version has NaN, both outputs), in float32 and float64: the inverse alone
+   on zero, NaN and near-singular blocks and two mono shapes; the fused
+   launch with K = 0, N = 0 on padding, special blocks with entries on
+   them and entries whose wf is outside [0, N), tile-edge counts, and the
+   level-1 and root shapes of both paths' plans (`core/plan`). At those
+   shapes (float64 too at the roots), device times from torch.profiler
+   (median of 10 calls, the L2 flushed before each): the fused kernel, the
+   inverse alone, the unfused sequence (K2 with K = 0, `take`,
+   `torch.matmul`), the library yardstick (`torch.linalg.inv`, `take`,
+   `torch.matmul`) and the plain version, beside the bound;
 5. small trees solved on the GPU and on the CPU, by "refine" and by
    "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
    agree to atol 1e-9;
 6. the stereo main path: the 2,048-map stereo loop-closure set (seed 7,
-   noise 0.005, covis radius 6, at most 6 co-visible features per map)
-   through `DeviceTreeSolver("stereo", method="refine", device="cuda")`, one
-   warm run and one timed run. Fails unless every pose id 1..2,048 is there
-   and finite, the ATE is within 1e-6 of the oracle's 0.009758730, every
-   level's PCG residual is <= 1e-10 and K1 and K2 launched;
+   noise 0.005, covis radius 6, at most 6 co-visible features per map; made
+   with its plan before phase 3) through `DeviceTreeSolver("stereo",
+   method="refine", device="cuda")`, one warm run and one timed run. Fails
+   unless every pose id 1..2,048 is there and finite, the ATE is within
+   1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10
+   and K1 and K2 launched;
 7. the mono main path: the same set in mono (pose 0 is an explicit block:
    ids 0..2,049) through `DeviceTreeSolver("mono", ...)`, checked the same
    way against the oracle's 0.014352172.
 
 The kernel launch counts are set to 0 just before each main path's timed
-run and read just after it. The line before the last is the kernel record
-(per kernel: launches, max error, kernel, plain, bound and library times at
-the root shape); the last line is {"ok": true, "device": {...}}.
+run and read just after it; the warm run checks that K2 ran at the shapes
+phase 4 timed. The line before the last is the kernel record (per kernel:
+launches, max error, kernel, plain, bound and library times and what the
+library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
+float32); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -216,12 +227,15 @@ def phase_kernels():
         k2 = _loop_ms(kernel, reps)
         p2 = _loop_ms(plain, reps)
         ms, plain_ms = min(k1, k2), min(p1, p2)
+        # the kernel alone again by device time, which no host pacing
+        # of the loop above can lengthen
+        dev = _device_ms({"kernel": kernel})["kernel"]
         times[name] = dict(ms=ms, plain_ms=plain_ms, wrapper_ms=w,
-                           library_ms=lib, bound_ms=bound)
+                           library_ms=lib, bound_ms=bound, device_ms=dev)
         print(f"k1 time {name}: kernel {k1:.4f}/{k2:.4f} ms on a prebuilt "
-              f"plan, wrapper {w:.4f} ms, bound {bound:.4f} ms (bytes) = "
-              f"{bound / ms:.1%} of the kernel's time, "
-              f"{bound / w:.1%} of the wrapper's; library (zeros + "
+              f"plan (device time {dev:.4f} ms), wrapper {w:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes) = {bound / ms:.1%} of the kernel's "
+              f"time, {bound / w:.1%} of the wrapper's; library (zeros + "
               f"index_put_) {lib:.4f} ms; plain {p1:.3f}/{p2:.3f} ms "
               f"(loops of {reps})", flush=True)
 
@@ -277,6 +291,47 @@ def phase_kernels():
     return max_err, times
 
 
+def _device_ms(fns, reps=10):
+    """Device time of one call of each function of `fns` ({name: fn}): the
+    summed durations of the kernels, fills and copies the call launches, from
+    a torch.profiler trace, median of `reps` calls (after two warm-up calls
+    each; the calls of the functions alternate). Before each call a 256 MB
+    fill, outside the measured range, evicts the 50 MB L2, so every call
+    reads its inputs from HBM."""
+    import statistics
+    import tempfile
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools.profile_k1 import device_us_by_range
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for fn in fns.values():
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            for name, fn in fns.items():
+                flush.zero_()
+                with torch.profiler.record_function(f"time/{name}"):
+                    fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        per = device_us_by_range(trace, "time/")
+    out = {}
+    for name in fns:
+        us = per.get(f"time/{name}", [])
+        if len(us) != reps:
+            raise AssertionError(f"device time of {name}: {len(us)} of "
+                                 f"{reps} calls in the trace")
+        out[name] = statistics.median(us) / 1e3
+    return out
+
+
 def _inv3x3_cases(dtype):
     """K2 inputs on the card: random SPD blocks with a zero, a NaN and two
     near-singular blocks; the mono plan's level-1 lane stack (1,024 pairs of
@@ -298,54 +353,175 @@ def _inv3x3_cases(dtype):
             "root [1, 11648]": spd(1, 11648)}
 
 
-def phase_k2():
+def _wy_lists(g, V, K, pad_every=17):
+    """A W list [P, K] over the feature blocks V [P, N]: random 6x3 blocks
+    at random features, every pad_every-th entry padding (W = 0, wf = 0) as
+    the joins pad."""
+    import torch
+    P, N = V.shape[:2]
+    W = torch.randn((P, K, 6, 3), generator=g, device="cuda", dtype=V.dtype)
+    wf = torch.randint(0, max(N, 1), (P, K), generator=g, device="cuda")
+    wp = torch.randint(0, 64, (P, K), generator=g, device="cuda")
+    Wpf = torch.stack([wp, wf], dim=-1)
+    W[:, ::pad_every] = 0.0
+    Wpf[:, ::pad_every] = 0
+    return W, Wpf
+
+
+def _wy_cases(dtype, shapes):
+    """Fused K2 inputs (V, W, Wpf) on the card: K = 0; N = 0 with K > 0 on
+    padding; zero, NaN and near-singular blocks with entries on them and
+    entries whose wf is outside [0, N); tile-edge counts (256 entries a
+    tile: 255, 256, 257, an odd count over two tiles, three lanes of 171);
+    and the main path's shapes (`shapes`: name -> (P, N, K))."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(45)
+
+    def spd(P, N):
+        A = torch.randn((P, N, 3, 3), generator=g, device="cuda", dtype=dtype)
+        return A @ A.transpose(-1, -2) + 0.1 * torch.eye(3, device="cuda",
+                                                         dtype=dtype)
+
+    def case(P, N, K):
+        V = spd(P, N)
+        return (V, *_wy_lists(g, V, K))
+    out = {"K=0": case(4, 300, 0),
+           "N=0, K>0 padding": (spd(2, 0),
+                                torch.zeros((2, 300, 6, 3), device="cuda",
+                                            dtype=dtype),
+                                torch.zeros((2, 300, 2), device="cuda",
+                                            dtype=torch.int64))}
+    V = _inv3x3_cases(dtype)["special"][None]
+    W, Wpf = _wy_lists(g, V, 1000)
+    for k, f in enumerate((7, 11, 13, 17, -1, 300, 10**6)):
+        Wpf[0, 3 + 10 * k:1000:70, 1] = f
+    out["zero/NaN/near-singular blocks, wf outside [0, N)"] = (V, W, Wpf)
+    for K in (255, 256, 257, 515):
+        out[f"K={K}"] = case(1, 64, K)
+    out["3 lanes K=171"] = case(3, 70, 171)
+    for name, (P, N, K) in shapes.items():
+        out[name] = case(P, N, K)
+    return out
+
+
+def _k2_bound_ms(P, N, K, esz, peak):
+    """(least time of one fused K2 launch, what bounds it): its bytes (see
+    `profile_k1.k2_bytes`) over the HBM rate, or its operations (33 per V
+    block for the inverse, 90 per W entry for the 6x3 by 3x3 product) over
+    the card's non-tensor peak, whichever is larger."""
+    from linearsfm_tpu_torch.tools.profile_k1 import k2_bytes
+    by_bytes = k2_bytes(P, N, K, esz) / HBM_BYTES_PER_S * 1e3
+    by_ops = (P * N * 33 + P * K * 90) / peak * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def _exact(got, ref):
+    """torch.equal, NaN where the plain version has NaN."""
+    import torch
+    return (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref)))
+
+
+def phase_k2(shapes):
+    """K2 against its plain versions, exactly, and its device times at the
+    main path's shapes (`shapes`: name -> (P, N, K), from the planner)."""
     import torch
     from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.ops.segment import take
 
     max_err = 0.0
     times = {}
+
+    def err_of(got, ref):
+        fin = torch.isfinite(ref)
+        return float((got[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).split(".")[-1]
+        # the inverse alone (the fused launch with K = 0)
         for name, V in _inv3x3_cases(dtype).items():
             got = kernels.inv3x3_sym(V)
             ref = kernels.inv3x3_sym_ref(V)
             torch.cuda.synchronize()
-            nan_same = torch.equal(torch.isnan(got), torch.isnan(ref))
-            if not (nan_same and torch.equal(torch.nan_to_num(got),
-                                             torch.nan_to_num(ref))):
+            if not _exact(got, ref):
                 raise AssertionError(f"K2 {name} {dn}: kernel != plain")
-            fin = torch.isfinite(ref)
-            err = float((got[fin] - ref[fin]).abs().max())
+            err = err_of(got, ref)
             max_err = max(max_err, err)
             print(f"k2 {name} {dn}: {list(V.shape)} max_abs_err={err:.3e} "
                   f"nan blocks {int(torch.isnan(got).any(-1).any(-1).sum())} "
                   f"(torch.equal) ok", flush=True)
-            if name == "special":
+        # fused: V^-1 and Y = W V^-1[wf] in one launch
+        for name, (V, W, Wpf) in _wy_cases(dtype, shapes).items():
+            n0 = kernels.launches["inv3x3_sym"]
+            got = kernels.inv3x3_wy(V, W, Wpf)
+            ref = kernels.inv3x3_wy_ref(V, W, Wpf)
+            torch.cuda.synchronize()
+            if kernels.launches["inv3x3_sym"] != n0 + 1:
+                raise AssertionError(f"K2 fused {name} {dn}: not one launch")
+            for what, a, b in zip(("Vinv", "Y"), got, ref):
+                if a.shape != b.shape or not _exact(a, b):
+                    raise AssertionError(f"K2 fused {name} {dn}: {what} "
+                                         f"kernel != plain")
+            err = max(err_of(got[0], ref[0]), err_of(got[1], ref[1]))
+            max_err = max(max_err, err)
+            print(f"k2 fused {name} {dn}: V {list(V.shape)} W "
+                  f"{list(W.shape)} max_abs_err={err:.3e} NaN Y blocks "
+                  f"{int(torch.isnan(got[1]).any(-1).any(-1).sum())} "
+                  f"(torch.equal, both outputs) ok", flush=True)
+            del got, ref
+    for name, (P, N, K) in shapes.items():
+        for dtype in (torch.float32, torch.float64):
+            if dtype == torch.float64 and "root" not in name:
                 continue
-            # least time: the upper triangle read and the 9 values written
-            # once (bytes) or 33 operations a block at the card's
-            # non-tensor peak, whichever is larger
-            n, esz = V.numel() // 9, V.element_size()
+            dn = str(dtype).split(".")[-1]
+            g = torch.Generator(device="cuda").manual_seed(P + N + K)
+            A = torch.randn((P, N, 3, 3), generator=g, device="cuda",
+                            dtype=dtype)
+            V = A @ A.transpose(-1, -2) + 0.1 * torch.eye(3, device="cuda",
+                                                          dtype=dtype)
+            W, Wpf = _wy_lists(g, V, K)
+            wf = Wpf[..., 1]
+            t = _device_ms({
+                "fused": lambda: kernels.inv3x3_wy(V, W, Wpf),
+                "inverse": lambda: kernels.inv3x3_sym(V),
+                "unfused": lambda: W @ take(kernels.inv3x3_sym(V), wf),
+                "library": lambda: W @ take(torch.linalg.inv(V), wf),
+                "plain": lambda: kernels.inv3x3_wy_ref(V, W, Wpf)})
             peak = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
-            by_bytes = n * 15 * esz / HBM_BYTES_PER_S * 1e3
-            by_ops = n * 33 / peak * 1e3
-            bound = max(by_bytes, by_ops)
-            reps = 20
-            p1 = _loop_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
-            k1 = _loop_ms(lambda: kernels.inv3x3_sym(V), reps)
-            lib = _loop_ms(lambda: torch.linalg.inv(V), reps)
-            k2 = _loop_ms(lambda: kernels.inv3x3_sym(V), reps)
-            p2 = _loop_ms(lambda: kernels.inv3x3_sym_ref(V), reps)
-            times[(name, dn)] = dict(
-                ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
-                bound_ms=bound,
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
-            print(f"k2 time {name} {dn}: kernel {k1:.4f}/{k2:.4f} ms, bound "
-                  f"{bound:.5f} ms ({times[(name, dn)]['bound_by']}) = "
-                  f"{bound / min(k1, k2):.1%}; library (torch.linalg.inv) "
-                  f"{lib:.4f} ms; plain {p1:.4f}/{p2:.4f} ms (loops of "
-                  f"{reps})", flush=True)
+            bound, by = _k2_bound_ms(P, N, K, V.element_size(), peak)
+            inv_bound, _ = _k2_bound_ms(P, N, 0, V.element_size(), peak)
+            times[(name, dn)] = dict(ms=t["fused"], plain_ms=t["plain"],
+                                     library_ms=t["library"], bound_ms=bound,
+                                     bound_by=by, inverse_ms=t["inverse"],
+                                     inverse_bound_ms=inv_bound,
+                                     unfused_ms=t["unfused"])
+            print(f"k2 time {name} P {P} N {N} K {K} {dn}: fused "
+                  f"{t['fused']:.5f} ms, bound {bound:.5f} ms ({by}) = "
+                  f"{bound / t['fused']:.1%}; inverse alone (K = 0) "
+                  f"{t['inverse']:.5f} ms vs {inv_bound:.5f} ms; unfused "
+                  f"(K2 K = 0 + take + torch.matmul) {t['unfused']:.5f} ms; "
+                  f"library (torch.linalg.inv + take + torch.matmul) "
+                  f"{t['library']:.5f} ms; plain {t['plain']:.5f} ms (device "
+                  f"time, median of 10 calls, L2 flushed)", flush=True)
+            del V, W, Wpf, wf, A
     return max_err, times
+
+
+def _k2_shapes(datasets):
+    """The fused K2's (P, N, K) at level 1 and at the root of each path's
+    plan (`core/plan.plan_tree_exact`): a level of `count` maps joins
+    count // 2 lanes of N = 2 N_in features, whose W lists hold the
+    transformed end map's KW_in + N_in (stereo) or KW_in + 2 N_in (mono,
+    one more feature family) entries plus cur's KW_in."""
+    out = {}
+    for d, (_, _, levels) in datasets.items():
+        per = 1 if d == "stereo" else 2
+        for tag, lp in (("level1", levels[0]), ("root", levels[-1])):
+            _, N_in, _, KW_in = lp.caps_in
+            out[f"{d} {tag}"] = (lp.count // 2, 2 * N_in,
+                                 2 * KW_in + per * N_in)
+    return out
 
 
 def _poses_by_id(lm):
@@ -378,12 +554,32 @@ def phase_small_trees():
                   f"{diff:.3e} (atol 1e-9) ok", flush=True)
 
 
-def phase_main_path(datatype):
+def make_dataset(datatype):
+    """The 2,048-map covis set (seed 7) and its tree plan's levels
+    (`core/plan.plan_tree_exact`, as `DeviceTreeSolver.run` plans it)."""
+    from synth import generate as gen
+    from linearsfm_tpu_torch.core import compact, plan
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+
+    t0 = time.perf_counter()
+    maps, poses_gt, _ = gen.make_dataset(2048, datatype, noise=0.005, seed=7,
+                                         covis_radius=6.0, covis_max=6)
+    s = DeviceTreeSolver(datatype, device="cuda")
+    levels = plan.plan_tree_exact(
+        plan.sym_of_stacked(compact.compact_stack(maps, s.bucket,
+                                                  s.u_bucket)),
+        datatype, s.bucket, s.u_bucket).levels
+    print(f"main {datatype}: dataset 2048 maps and plan ({len(levels)} "
+          f"levels) in {time.perf_counter() - t0:.2f} s", flush=True)
+    return maps, poses_gt, levels
+
+
+def phase_main_path(datatype, maps, poses_gt, shapes):
     """One warm and one timed run of the 2,048-map covis set; returns the
-    kernel launch counts of the timed run."""
+    kernel launch counts of the timed run. The warm run's fused K2 launches
+    must have the shapes phase 4 timed (`shapes`) at level 1 and the root."""
     import numpy as np
     import torch
-    from synth import generate as gen
     from linearsfm_tpu_torch import types
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.ops import kernels
@@ -391,16 +587,25 @@ def phase_main_path(datatype):
 
     n, tag = 2048, f"main {datatype}"
     oracle = ORACLE_ATE_2048[datatype]
-    t0 = time.perf_counter()
-    maps, poses_gt, _ = gen.make_dataset(n, datatype, noise=0.005, seed=7,
-                                         covis_radius=6.0, covis_max=6)
-    print(f"{tag}: dataset {n} maps in {time.perf_counter() - t0:.2f} s",
-          flush=True)
     solver = DeviceTreeSolver(datatype, method="refine", device="cuda")
+    fused, seen = kernels.inv3x3_wy, []
+
+    def record(V, W, Wpf):
+        seen.append((V.shape[0], V.shape[1], W.shape[1]))
+        return fused(V, W, Wpf)
+    kernels.inv3x3_wy = record
     t0 = time.perf_counter()
-    solver.run(maps)
+    try:
+        solver.run(maps)
+    finally:
+        kernels.inv3x3_wy = fused
     print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s "
-          f"{solver._last_timing}", flush=True)
+          f"{solver._last_timing}; fused K2 shapes (P, N, K) by level "
+          f"{seen}", flush=True)
+    want = [shapes[f"{datatype} level1"], shapes[f"{datatype} root"]]
+    if not seen or [seen[0], seen[-1]] != want:
+        raise AssertionError(f"{tag}: fused K2 ran at {seen}, phase 4 timed "
+                             f"{want}")
 
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.launches:
@@ -473,12 +678,15 @@ def main() -> int:
     print(f"build: {', '.join(os.path.basename(s) for s in kernels.SOURCES)} "
           f"(nvcc sm_90a) {time.perf_counter() - t0:.2f} s", flush=True)
 
+    datasets = {d: make_dataset(d) for d in ("stereo", "mono")}
+    shapes = _k2_shapes(datasets)
     k1_err, k1_times = phase_kernels()
-    k2_err, k2_times = phase_k2()
+    k2_err, k2_times = phase_k2(shapes)
     phase_small_trees()
-    paths = {d: phase_main_path(d) for d in ("stereo", "mono")}
+    paths = {d: phase_main_path(d, maps, gt, shapes)
+             for d, (maps, gt, _) in datasets.items()}
 
-    def record(name, source, replaces, max_err, t):
+    def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -486,16 +694,20 @@ def main() -> int:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_ms"], "library": library}
 
+    # K2's figures: the fused kernel (V^-1 and Y = W V^-1[wf]) at the stereo
+    # root, float32, by device time
     print(json.dumps({"kernels": [
         record("blockcoo_to_dense",
                "linearsfm_tpu_torch/csrc/blockcoo_dense.cu",
                "linearsfm_tpu/ops/pallas_kernels.py:156", k1_err,
-               k1_times["root W stripe 6x3 (plan)"]),
+               k1_times["root W stripe 6x3 (plan)"],
+               "torch.zeros + index_put_(accumulate=True)"),
         record("inv3x3_sym", "linearsfm_tpu_torch/csrc/inv3x3_sym.cu",
                "linearsfm_tpu/ops/pallas_kernels.py:57", k2_err,
-               k2_times[("root [1, 11648]", "float32")])]}), flush=True)
+               k2_times[("stereo root", "float32")],
+               "torch.linalg.inv + take + torch.matmul")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ The PyTorch port of `linearsfm_tpu` (the JAX reference, which stays beside
 it). Module paths mirror the reference one for one (`types`, `ops/`, `core/`,
 `utils/`); both TPU kernels of the reference, `blockcoo_to_dense` and
 `inv3x3_sym`, are hand-written CUDA kernels (`csrc/`, bound in
-`ops/kernels.py`) on the stereo and the mono path.
+`ops/kernels.py`) on the stereo and the mono path; the second, fused with
+its consumer, also forms the products W V^-1[wf] of the Schur complement.
 
 Conventions that replace the reference's JAX configuration:
 

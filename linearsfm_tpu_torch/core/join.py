@@ -115,8 +115,8 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
             escalate_iters=cfg.escalate_iters, escalate_tol=cfg.escalate_tol,
             exit_tol=cfg.exit_tol)
     elif cfg.method == "direct":
-        Vinv = schur.inv3x3_sym(V)
-        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, Mo)
+        Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
+        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, Mo)
         S, E = solve.mask_gauge(S, E, fixed)
         xp = solve.cholesky_solve(S, E).reshape(P, Mo, 6)
         xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
@@ -238,8 +238,8 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
             fixc=fixc, sign=sign, escalate_iters=cfg.escalate_iters,
             escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
     elif cfg.method == "direct" and cfg.pin in ("sign", "zero"):
-        Vinv = schur.inv3x3_sym(V)
-        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, Mo)
+        Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
+        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, Mo)
         if cfg.pin == "sign":
             E = E - S[torch.arange(P, device=dev), :, fixc] * sign[:, None]
         S, E = solve.mask_gauge(S, E, fixed)

@@ -6,8 +6,10 @@ its CUDA source under `csrc/` notes its design and what bounds it:
 * K1 `blockcoo_to_dense` (`csrc/blockcoo_dense.cu`): dense matrices from
   block-COO lists, the Schur assembly's scatter; `coo_plan` sorts a list
   once and `blockcoo_to_dense_planned` launches K1 on a column window of it;
-* K2 `inv3x3_sym` (`csrc/inv3x3_sym.cu`): the batched closed-form inverse of
-  the symmetric 3x3 feature blocks.
+* K2 (`csrc/inv3x3_sym.cu`), fused: `inv3x3_wy` computes in one launch the
+  closed-form inverses Vinv of the symmetric 3x3 feature blocks and the
+  products Y = W Vinv[wf] of every W entry; `inv3x3_sym` is the same launch
+  with no W entries (the inverse alone).
 
 All sources are compiled with nvcc for sm_90a (one process per source, all
 started together) and linked into one shared library with a plain C
@@ -33,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from .segment import lane_ids
+from .segment import lane_ids, take
 
 launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0}
 
@@ -43,6 +45,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _lib: ctypes.CDLL | None = None   # loaded once per process
+_K2: dict = {}   # torch dtype -> K2's bound ctypes function, set by build()
 
 
 def _nvcc() -> str:
@@ -95,10 +98,12 @@ def build() -> ctypes.CDLL:
                                                ctypes.c_int64, ctypes.c_int64,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn in (lib.inv3x3_sym_f32, lib.inv3x3_sym_f64):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p]
+    for dtype, fn in ((torch.float32, lib.inv3x3_wy_f32),
+                      (torch.float64, lib.inv3x3_wy_f64)):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _K2[dtype] = fn
     _lib = lib
     return lib
 
@@ -285,33 +290,100 @@ def inv3x3_sym_ref(V: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
 
 
-def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
-    """K2: inverse of every symmetric 3x3 block of V [..., 3, 3].
+def inv3x3_wy_ref(V: torch.Tensor, W: torch.Tensor,
+                  Wpf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused K2: (Vinv, Y) with Vinv = inv3x3_sym_ref(V)
+    [P, N, 3, 3] and Y[p, k] = W[p, k] @ Vinv[p, wf[p, k]] [P, K, 6, 3],
+    wf = Wpf[..., 1].
 
-    Same contract as `inv3x3_sym_ref`, for contiguous float32 (the PCG
-    preconditioner) and float64 (the plain-Cholesky levels) tensors; on a
-    CUDA tensor the kernel equals the plain version bit for bit. An empty
-    batch launches nothing.
+    The product is taken element by element in the kernel's order, not with
+    a matmul: Y[i, j] = (W[i,0] G[0,j] + W[i,1] G[1,j]) + W[i,2] G[2,j]. An
+    entry whose wf lies outside [0, N) gets Y = 0.
+    """
+    Vinv = inv3x3_sym_ref(V)
+    P, N = V.shape[0], V.shape[1]
+    wf = Wpf[..., 1]
+    ok = (wf >= 0) & (wf < N)
+    # a zero block at slot N takes the out-of-range entries (and N = 0)
+    G = take(torch.cat([Vinv, Vinv.new_zeros((P, 1, 3, 3))], dim=1),
+             torch.where(ok, wf, N))
+    Y = (W[..., 0:1] * G[..., 0:1, :] + W[..., 1:2] * G[..., 1:2, :]
+         + W[..., 2:3] * G[..., 2:3, :])
+    return Vinv, torch.where(ok[..., None, None], Y, Y.new_zeros(()))
+
+
+def _k2_launch(V, W, Wpf, Vinv, Y, P: int, N: int, K: int):
+    """One launch of K2 on V's current stream (W, Wpf, Y None when K = 0);
+    raises if it fails. Nothing to compute launches nothing."""
+    if P * (N + K) == 0:
+        return
+    fn = _K2.get(V.dtype)
+    if fn is None:
+        build()
+        fn = _K2[V.dtype]
+    err = fn(V.data_ptr(), W.data_ptr() if K else None,
+             Wpf.data_ptr() if K else None, Vinv.data_ptr(),
+             Y.data_ptr() if K else None, P, N, K,
+             torch.cuda.current_stream(V.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"inv3x3_wy: CUDA launch failed (error {err})")
+    launches["inv3x3_sym"] += 1
+
+
+def _k2_check(name: str, V: torch.Tensor):
+    if V.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {V.device}")
+    if V.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32/float64 only, got {V.dtype}")
+
+
+def inv3x3_wy(V: torch.Tensor, W: torch.Tensor,
+              Wpf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 (fused): (Vinv, Y) as `inv3x3_wy_ref`, from one launch.
+
+    V [P, N, 3, 3] and W [P, K, 6, 3] of one dtype, float32 (the PCG
+    preconditioner) or float64 (the plain-Cholesky levels), and the int64
+    pair list Wpf [P, K, 2], all contiguous on one CUDA device; the kernel
+    reads wf = Wpf[..., 1] in place. It equals the plain version bit for bit.
+    """
+    if V.device.type == "cpu":
+        return inv3x3_wy_ref(V, W, Wpf)
+    _k2_check("inv3x3_wy", V)
+    if V.dim() != 4 or V.shape[2:] != (3, 3):
+        raise ValueError(f"inv3x3_wy: V must be [P, N, 3, 3], got "
+                         f"{list(V.shape)}")
+    P, N, K = V.shape[0], V.shape[1], W.shape[1] if W.dim() == 4 else -1
+    if W.shape != (P, K, 6, 3) or Wpf.shape != (P, K, 2):
+        raise ValueError(f"inv3x3_wy: W [P, K, 6, 3] and Wpf [P, K, 2] must "
+                         f"match V's P, got {list(W.shape)}, "
+                         f"{list(Wpf.shape)}")
+    if W.dtype != V.dtype or Wpf.dtype != torch.int64:
+        raise TypeError(f"inv3x3_wy: W must be {V.dtype} and Wpf int64, got "
+                        f"{W.dtype}, {Wpf.dtype}")
+    if not (W.device == Wpf.device == V.device):
+        raise ValueError("inv3x3_wy: operands on different devices")
+    if not (V.is_contiguous() and W.is_contiguous() and Wpf.is_contiguous()):
+        raise ValueError("inv3x3_wy: V, W and Wpf must be contiguous")
+    Vinv, Y = torch.empty_like(V), torch.empty_like(W)
+    _k2_launch(V, W, Wpf, Vinv, Y, P, N, K)
+    return Vinv, Y
+
+
+def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
+    """K2 with no W entries: the inverse of every symmetric 3x3 block of V
+    [..., 3, 3].
+
+    Same contract as `inv3x3_sym_ref`, for contiguous float32 and float64
+    tensors; on a CUDA tensor the fused kernel's launch with K = 0, bit-equal
+    to the plain version. An empty batch launches nothing.
     """
     if V.device.type == "cpu":
         return inv3x3_sym_ref(V)
-    if V.device.type != "cuda":
-        raise ValueError(f"inv3x3_sym: no kernel for {V.device}")
-    if V.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"inv3x3_sym: float32/float64 only, got {V.dtype}")
+    _k2_check("inv3x3_sym", V)
     if (V.layout != torch.strided or V.dim() < 2 or V.shape[-2:] != (3, 3)
             or not V.is_contiguous()):
         raise ValueError("inv3x3_sym: V must be a contiguous [..., 3, 3] "
                          "tensor")
     out = torch.empty_like(V)
-    n = V.numel() // 9
-    if n == 0:
-        return out
-    lib = build()
-    fn = lib.inv3x3_sym_f32 if V.dtype == torch.float32 else lib.inv3x3_sym_f64
-    err = fn(V.data_ptr(), out.data_ptr(), n,
-             torch.cuda.current_stream(V.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"inv3x3_sym: CUDA launch failed (error {err})")
-    launches["inv3x3_sym"] += 1
+    _k2_launch(V, None, None, out, None, 1, V.numel() // 9, 0)
     return out

@@ -1,10 +1,11 @@
 """Information-form fusion solve: dense feature-Schur complement.
 
 Counterpart of `linearsfm_tpu/ops/schur.py`, the subset the device tree
-runs: the dense assembly (`_assemble_schur_dense`, feature-chunked above a
-byte budget), the mixed-precision solve `solve_full_mixed` (f32 Schur
-Cholesky preconditioning an f64 PCG on the full information system), and the
-feature back-substitution. The grouped (per-feature) assembly of the host
+runs: the feature-block inverses fused with Y = W Vinv[wf] (`inv3x3_wy`,
+kernel K2), the dense assembly (`_assemble_schur_dense`, feature-chunked
+above a byte budget), the mixed-precision solve `solve_full_mixed` (f32
+Schur Cholesky preconditioning an f64 PCG on the full information system),
+and the feature back-substitution. The grouped (per-feature) assembly of the host
 executor is not ported.
 
 Every operand carries the leading lane dimension P: one call solves every
@@ -39,12 +40,17 @@ def _bmv_t(a, v):
     return (a.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
-def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
-    """Batched closed-form inverse of symmetric 3x3 blocks; exactly-singular
-    blocks (zero padding) return zero. Kernel K2 on a CUDA tensor, its plain
-    version on the CPU; unlike the reference, which runs the jnp form in
-    production, every join on the GPU goes through the kernel."""
-    return kernels.inv3x3_sym(V.contiguous())
+def inv3x3_wy(V, W, Wpf):
+    """(Vinv, Y): the closed-form inverses Vinv [P, N, 3, 3] of the
+    symmetric feature blocks (exactly-singular padding blocks give zero) and
+    the blocks Y = W @ Vinv[wf] [P, K, 6, 3] of every W entry, from one
+    launch of kernel K2 on a CUDA tensor (its plain version on the CPU).
+    Vinv serves the preconditioner and the back-substitution, Y the dense
+    assembly and the preconditioner. Unlike the reference, which runs the
+    jnp inverse (its `inv3x3_sym`) in production and gathers Vinv[wf] for a
+    batched product, every join on the GPU goes through the kernel."""
+    return kernels.inv3x3_wy(V.contiguous(), W.contiguous(),
+                             Wpf.contiguous())
 
 
 def info_vector(poses, feats, U, Uij, W, Wpf, V):
@@ -82,13 +88,14 @@ def _require_full_f32(device: torch.device):
                            "False: the Schur preconditioner needs full f32")
 
 
-def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int, Yb=None):
+def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
     """S [P, 6M, 6M] = A - (W Vinv) W^T and E [P, 6M] = eP - (W Vinv) eF,
     through dense [6M, 3N] layouts of W and Y = W Vinv.
 
-    Yb: the blocks W @ Vinv[wf], computed here when not given. The W list
-    is sorted once (`kernels.coo_plan`): Wd, Yd and every feature stripe of
-    both densify that one plan. float32 (the preconditioner side):
+    Yb: the blocks W @ Vinv[wf] of the W list (`inv3x3_wy`), where the
+    reference takes Vinv and forms them here. The W list is sorted once
+    (`kernels.coo_plan`): Wd, Yd and every feature stripe of both densify
+    that one plan. float32 (the preconditioner side):
     zero-valued entries are routed to row -1, and A's symmetric completion
     is D + D^T with the double-counted diagonal blocks taken off
     (`sym_complete`). Above `dense_w_bytes()` per lane the feature axis is
@@ -97,12 +104,10 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Vinv, eP, eF, M: int, Yb=None):
     plain-Cholesky levels) densifies A's transposed blocks directly, as the
     reference does.
     """
-    P, N = Vinv.shape[0], Vinv.shape[1]
+    P, N = eF.shape[0], eF.shape[1]
     dtype, dev = U.dtype, U.device
     ui, uj = Uij[..., 0], Uij[..., 1]
     wp, wf = Wpf[..., 0], Wpf[..., 1]
-    if Yb is None:
-        Yb = W @ take(Vinv, wf)
 
     if dtype != torch.float32:
         A = densify_blocks(ui, uj, U, M, M)
@@ -197,10 +202,10 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     lane = torch.arange(P, device=dev)
 
     U32, W32, V32 = U.to(f32), W.to(f32), V.to(f32)
-    Vinv32 = inv3x3_sym(V32)
-    Y32 = W32 @ take(Vinv32, wf)      # the assembly's Yb and the PCG's Y
-    S32, E32 = _assemble_schur_dense(U32, Uij, W32, Wpf, Vinv32, eP.to(f32),
-                                     eF.to(f32), M, Yb=Y32)
+    # one K2 launch: Y32 = W Vinv32[wf] is the assembly's Yb and the PCG's Y
+    Vinv32, Y32 = inv3x3_wy(V32, W32, Wpf)
+    S32, E32 = _assemble_schur_dense(U32, Uij, W32, Wpf, Y32, eP.to(f32),
+                                     eF.to(f32), M)
     if fixc is not None:
         E32 = E32 - S32[lane, :, fixc] * sign.to(f32)[:, None]
     S32, E32 = solve.mask_gauge(S32, E32, fixed_mask)

@@ -1,4 +1,4 @@
-"""Profile kernel K1 on the port's 2,048-map main paths (one CUDA GPU).
+"""Profile kernels K1 and K2 on the port's 2,048-map main paths (one GPU).
 
     python3 -m linearsfm_tpu_torch.tools.profile_k1 [--paths stereo,mono]
         [--out profile_k1_out] [--repeat 1]
@@ -18,14 +18,26 @@ From the profiler's Chrome trace it reports:
 * the device time of every other kernel launched inside K1's Python wrappers
   (output fills, the sort, `searchsorted`, ...), by wrapper and kernel name;
 * the device time of all kernels launched inside `_assemble_schur_dense`;
-* kernel K2's launches and device time beside its bound (each block's upper
-  triangle read and its 9 values written once, over the HBM rate);
+* every launch of kernel K2 (`inv3x3_wy`, fused: V^-1 and Y = W V^-1[wf];
+  or `inv3x3_sym`, the inverse alone, in a tree that has no fused entry),
+  with its level, shape (P, N, K), device time and bound: `k2_bytes` over
+  the HBM rate;
+* the device time of every kernel at the Y sites, by level and kernel name:
+  the kernels launched from a level's first K2 call (a "k2/<function>"
+  range) to the start of its Schur assembly. In a tree with the fused
+  kernel that is K2 alone; in one without, K2, the gather of V^-1[wf] and
+  the batched product W V^-1[wf]; so the two trees compare at the same
+  sites;
 * the device busy time (union of kernel intervals) and span.
 
-The K1 wrappers are wrapped here in `torch.profiler.record_function` ranges
-("k1/<function>"); each level runs inside a "level<n>" range. Nothing of the
-port is changed. One JSON file per path goes to --out; the summary lines go
-to stdout, the card's name and power limit first.
+The K1 and K2 wrappers are wrapped here in `torch.profiler.record_function`
+ranges ("k1/<function>", "k2/<function>"); each level runs inside a
+"level<n>" range. Nothing of the port is changed, and the tool runs
+against an older tree of the port too, which is how parent and change are
+compared: from that tree's root,
+    PYTHONPATH=. python3 <this tree>/linearsfm_tpu_torch/tools/profile_k1.py
+One JSON file per path goes to --out; the summary lines go to stdout, the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +54,7 @@ import time
 N_MAPS = 2048
 HBM_BYTES_PER_S = 3.35e12
 _out_bytes = []   # output bytes of each K1 launch, in launch order
-_k2_bytes = []    # bytes each K2 launch must move
+_k2_launches = []  # shape, bytes and level of each K2 launch
 
 
 def _wrap(fn, label):
@@ -52,6 +65,34 @@ def _wrap(fn, label):
         with torch.profiler.record_function(label):
             return fn(*a, **k)
     return inner
+
+
+def k2_bytes(P, N, K, esz):
+    """Bytes one K2 launch must move: each V block's upper triangle read and
+    its 9 inverse values written, each W entry's 18 values read and its 18
+    Y values written, and its int64 (wp, wf) pair read (fetched whole)."""
+    return P * N * (6 + 9) * esz + P * K * ((18 + 18) * esz + 16)
+
+
+def _record_k2(kernels, name):
+    """K2 entry `name`, recording each launch's shape and bytes."""
+    fn = getattr(kernels, name)
+
+    @functools.wraps(fn)
+    def record(V, *rest):
+        n0 = kernels.launches["inv3x3_sym"]
+        out = fn(V, *rest)
+        if kernels.launches["inv3x3_sym"] > n0:
+            if rest:
+                P, N, K = V.shape[0], V.shape[1], rest[0].shape[1]
+            else:
+                P, N, K = 1, V.numel() // 9, 0
+            _k2_launches.append({"fn": name, "P": P, "N": N, "K": K,
+                                 "dtype": str(V.dtype).split(".")[-1],
+                                 "bytes": k2_bytes(P, N, K,
+                                                   V.element_size())})
+        return out
+    return record
 
 
 def _wrap_modules(kernels, schur):
@@ -77,16 +118,12 @@ def _wrap_modules(kernels, schur):
     for name in ("blockcoo_to_dense", "coo_plan", "blockcoo_to_dense_planned"):
         if hasattr(kernels, name):
             setattr(kernels, name, _wrap(getattr(kernels, name), f"k1/{name}"))
-    inv = kernels.inv3x3_sym
-
-    @functools.wraps(inv)
-    def record_k2(V):
-        n0 = kernels.launches["inv3x3_sym"]
-        out = inv(V)
-        if kernels.launches["inv3x3_sym"] > n0:
-            _k2_bytes.append(V.numel() // 9 * 15 * V.element_size())
-        return out
-    kernels.inv3x3_sym = record_k2
+    # K2: the fused entry (this tree's main path) and the inverse alone (a
+    # parent tree's); each launch's shape and the bytes it must move
+    for name in ("inv3x3_wy", "inv3x3_sym"):
+        if hasattr(kernels, name):
+            setattr(kernels, name, _wrap(_record_k2(kernels, name),
+                                         f"k2/{name}"))
     # the Schur module's own names for the wrappers
     for alias, name in (("densify_blocks", "blockcoo_to_dense"),
                         ("densify_planned", "blockcoo_to_dense_planned")):
@@ -111,8 +148,11 @@ def _instrument(solver):
         state["level"] += 1
         with torch.profiler.record_function(f"level{state['level']}"):
             n0 = kernels.launches["blockcoo_to_dense"]
+            k0 = len(_k2_launches)
             out = level_fn(x, lp)
             n = kernels.launches["blockcoo_to_dense"] - n0
+        for r in _k2_launches[k0:]:
+            r["level"] = state["level"]
         for i in range(n):
             op = "A" if i == 0 else ("Wd" if i % 2 == 1 else "Yd")
             labels.append({"level": state["level"], "operand": op,
@@ -130,7 +170,7 @@ def _instrument(solver):
     def reset():
         labels.clear()
         _out_bytes.clear()
-        _k2_bytes.clear()
+        _k2_launches.clear()
         state["level"] = 0
     return labels, reset
 
@@ -145,32 +185,62 @@ def _union_us(iv):
     return tot
 
 
-def _analyse(trace_path, labels):
-    with open(trace_path) as fh:
+def load_trace(path):
+    """(device events sorted by start, {correlation: host launch ts}, user
+    ranges (start, end, name) sorted by start) of a torch.profiler Chrome
+    trace. Device events are kernels, fills and copies."""
+    with open(path) as fh:
         ev = json.load(fh)["traceEvents"]
-    dev = [e for e in ev if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
-    launch_ts = {}
+    dev = sorted((e for e in ev if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")),
+                 key=lambda e: e["ts"])
+    launch = {}
     for e in ev:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "args" in e:
             c = e["args"].get("correlation")
             if c is not None:
-                launch_ts[c] = e["ts"]
+                launch[c] = e["ts"]
     ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
                      if e.get("cat") == "user_annotation"
                      and e.get("ph") == "X"), key=lambda r: r[0])
+    return dev, launch, ranges
 
-    def innermost(ts, prefix):
-        best = None
-        for a, b, n in ranges:
-            if a > ts:
-                break
-            if b >= ts and n.startswith(prefix):
-                if best is None or a >= best[0]:
-                    best = (a, b, n)
-        return best[2] if best else None
 
-    dev.sort(key=lambda e: e["ts"])
+def innermost(ranges, ts, prefix):
+    """The innermost range (start, end, name) holding host time ts whose
+    name starts with prefix, or None."""
+    best = None
+    if ts is None:
+        return None
+    for r in ranges:
+        if r[0] > ts:
+            break
+        if r[1] >= ts and r[2].startswith(prefix):
+            if best is None or r[0] >= best[0]:
+                best = r
+    return best
+
+
+def device_us_by_range(trace_path, prefix):
+    """{range name: [device time of each instance, us]} over the ranges
+    whose name starts with prefix: the summed durations of the device
+    events launched inside one instance of the range."""
+    dev, launch, ranges = load_trace(trace_path)
+    own = [r for r in ranges if r[2].startswith(prefix)]
+    acc = {(r[0], r[2]): 0.0 for r in own}
+    for e in dev:
+        r = innermost(own, launch.get(e.get("args", {}).get("correlation")),
+                      prefix)
+        if r is not None:
+            acc[(r[0], r[2])] += e["dur"]
+    out = {}
+    for (_, name), us in sorted(acc.items()):
+        out.setdefault(name, []).append(us)
+    return out
+
+
+def _analyse(trace_path, labels):
+    dev, launch_ts, ranges = load_trace(trace_path)
     k1 = [e for e in dev if "blockcoo" in e["name"]]
     if len(k1) != len(labels):
         raise AssertionError(f"{len(k1)} K1 kernels in the trace, "
@@ -182,23 +252,41 @@ def _analyse(trace_path, labels):
                          grid=e["args"].get("grid"),
                          block=e["args"].get("block"),
                          smem=e["args"].get("shared memory")))
-    wrapper, assembly_us = {}, 0.0
+    levels = [r for r in ranges if re.fullmatch(r"level\d+", r[2])]
+    assembles = [r for r in ranges if r[2] == "schur/assemble"]
+    k2_calls = [r for r in ranges if r[2].startswith("k2/")]
+    # the Y sites of a level: from its first K2 call to its Schur assembly
+    sites = []
+    for lv in levels:
+        a = next((r[0] for r in k2_calls if lv[0] <= r[0] <= lv[1]), None)
+        b = next((r[0] for r in assembles if lv[0] <= r[0] <= lv[1]), lv[1])
+        if a is not None:
+            sites.append((int(lv[2][5:]), a, b))
+    wrapper, assembly_us, ysite = {}, 0.0, {}
     for e in dev:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         if ts is None:
             continue
-        if innermost(ts, "schur/assemble"):
+        if innermost(ranges, ts, "schur/assemble"):
             assembly_us += e["dur"]
-        where = innermost(ts, "k1/")
+        for lv, a, b in sites:
+            if a <= ts < b:
+                key = (lv, e["name"][:90])
+                c, t = ysite.get(key, (0, 0.0))
+                ysite[key] = (c + 1, t + e["dur"])
+        where = innermost(ranges, ts, "k1/")
         if where is None or "blockcoo" in e["name"]:
             continue
-        key = (where, e["name"][:90])
+        key = (where[2], e["name"][:90])
         c, t = wrapper.get(key, (0, 0.0))
         wrapper[key] = (c + 1, t + e["dur"])
-    k2 = [e["dur"] for e in dev if "inv3x3" in e["name"]]
-    if len(k2) != len(_k2_bytes):
+    k2 = [e for e in dev if "inv3x3" in e["name"]]
+    if len(k2) != len(_k2_launches):
         raise AssertionError(f"{len(k2)} K2 kernels in the trace, "
-                             f"{len(_k2_bytes)} launches counted")
+                             f"{len(_k2_launches)} launches counted")
+    k2_rows = [dict(lab, us=e["dur"],
+                    bound_us=lab["bytes"] / HBM_BYTES_PER_S * 1e6)
+               for e, lab in zip(k2, _k2_launches)]
     iv = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
     span = (max(b for _, b in iv) - min(a for a, _ in iv)) if iv else 0.0
     return {"k1": rows,
@@ -208,8 +296,12 @@ def _analyse(trace_path, labels):
                                 for (w, n), (c, t) in sorted(
                                     wrapper.items(), key=lambda x: -x[1][1])],
             "assembly_us": assembly_us,
-            "k2_launches": len(k2), "k2_us": sum(k2),
-            "k2_bound_us": sum(_k2_bytes) / HBM_BYTES_PER_S * 1e6,
+            "k2": k2_rows, "k2_launches": len(k2),
+            "k2_us": sum(r["us"] for r in k2_rows),
+            "k2_bound_us": sum(r["bound_us"] for r in k2_rows),
+            "y_sites": [{"level": lv, "kernel": n, "count": c, "us": t}
+                        for (lv, n), (c, t) in sorted(ysite.items())],
+            "y_sites_us": sum(t for _, t in ysite.values()),
             "busy_us": _union_us(iv), "span_us": span,
             "n_device_events": len(dev)}
 
@@ -281,8 +373,17 @@ def profile_path(datatype, out_dir, repeat):
         print(f"{tag}: K1 level {lv:2d} {op:2s} x{c}: {t / 1e3:.4f} ms, "
               f"bound {bound / 1e3:.4f} ms ({bound / t:.0%})", flush=True)
     print(f"{tag}: K2 {rep['k2_launches']} launches, device "
-          f"{rep['k2_us'] / 1e3:.4f} ms (bound {rep['k2_bound_us'] / 1e3:.5f} "
-          f"ms)", flush=True)
+          f"{rep['k2_us'] / 1e3:.4f} ms (bound {rep['k2_bound_us'] / 1e3:.4f} "
+          f"ms, {rep['k2_bound_us'] / max(rep['k2_us'], 1e-9):.0%}); kernels "
+          f"at the Y sites {rep['y_sites_us'] / 1e3:.4f} ms", flush=True)
+    for r in rep["k2"]:
+        print(f"{tag}: K2 level {r.get('level', 0):2d} {r['fn']} P {r['P']} "
+              f"N {r['N']} K {r['K']} {r['dtype']}: {r['us']:.2f} us, bound "
+              f"{r['bound_us']:.2f} us ({r['bound_us'] / r['us']:.0%})",
+              flush=True)
+    for y in rep["y_sites"]:
+        print(f"{tag}: Y site level {y['level']:2d} {y['kernel']}: "
+              f"{y['count']} x, {y['us']:.2f} us", flush=True)
     for w in rep["wrapper_kernels"][:12]:
         print(f"{tag}: wrapper {w['range']} {w['kernel']}: {w['count']} x, "
               f"{w['us'] / 1e3:.4f} ms", flush=True)

@@ -5,7 +5,9 @@
   batch), exactly: both sum duplicates in list order;
 * K2's plain version against the reference's `schur.inv3x3_sym` and its
   Pallas kernel in interpret mode (tests/test_pallas.py inputs, float32, a
-  NaN block, a lane stack);
+  NaN block, a lane stack); the fused K2's plain version (`inv3x3_wy_ref`:
+  Vinv and Y = W Vinv[wf]) against the reference's inverse and its einsum
+  on W lists with padding, and its edges (wf outside [0, N), N = 0, K = 0);
 * K1's plan (`coo_plan`): every column window gathered through the plan's
   CSR offsets and binary-searched sub-ranges densifies, exactly, to the
   plain version over the masked and clamped list the Schur assembly used to
@@ -15,7 +17,8 @@
   launch; a device without a kernel raises instead of falling back;
 * the port imports neither jax nor the reference package;
 * on a CUDA card (marker `cuda`), each kernel against its plain version in
-  float32 and float64; K1 also at tile edges (widths that are not a
+  float32 and float64; the fused K2 bit for bit at its tile edges; K1 also
+  at tile edges (widths that are not a
   multiple of the tile width, block rows that are not a multiple of the
   tile's, rows whose bytes are not a multiple of 16), on stripe windows of
   one plan, with one launch per planned call.
@@ -274,18 +277,127 @@ def test_inv3x3_plain_matches_reference_and_pallas(name):
 
 
 def test_inv3x3_dispatch_counts_only_kernel_launches():
-    """schur.inv3x3_sym takes the plain version on the CPU (no launch, also
-    for a non-contiguous V); a device without a kernel raises."""
-    from linearsfm_tpu_torch.ops import schur
-
+    """K2's inverse alone takes the plain version on the CPU (no launch,
+    also for a non-contiguous V); a device without a kernel raises."""
     V = torch.from_numpy(_inv3x3_input("lane stack [P, N]"))
     before = dict(kernels.launches)
-    assert torch.equal(schur.inv3x3_sym(V), kernels.inv3x3_sym_ref(V))
+    assert torch.equal(kernels.inv3x3_sym(V), kernels.inv3x3_sym_ref(V))
     Vt = V.transpose(0, 1)                          # not contiguous
-    assert torch.equal(schur.inv3x3_sym(Vt), kernels.inv3x3_sym_ref(Vt))
+    assert torch.equal(kernels.inv3x3_sym(Vt), kernels.inv3x3_sym_ref(Vt))
     assert kernels.launches == before
     with pytest.raises(ValueError, match="no kernel"):
         kernels.inv3x3_sym(torch.empty((4, 3, 3), device="meta"))
+
+
+def _wy_lists(V, K, seed=44):
+    """A W list over the lane-stacked feature blocks V [P, N, 3, 3]: random
+    6x3 blocks at random features, every 7th entry padding (W = 0, wf = 0,
+    as the joins pad) and some entries on blocks 7 and 11 (zero and, in the
+    NaN case, NaN blocks)."""
+    rng = np.random.default_rng(seed)
+    P, N = V.shape[:2]
+    W = rng.standard_normal((P, K, 6, 3)).astype(V.dtype)
+    Wpf = np.stack([rng.integers(0, 16, (P, K)),
+                    rng.integers(0, max(N, 1), (P, K))], axis=-1)
+    if N > 11:
+        Wpf[:, 3::10, 1] = 7
+        Wpf[:, 5::10, 1] = 11
+    W[:, ::7] = 0.0
+    Wpf[:, ::7] = 0
+    return W, Wpf
+
+
+def _nan_equal(a, b):
+    """torch.equal, NaN where the other has NaN."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("name", INV3X3_CASES)
+def test_inv3x3_wy_plain_matches_reference(name):
+    """The fused K2's plain version against the reference on the same
+    numpy inputs (lane-stacked, padding, zero and NaN blocks): Vinv against
+    `schur.inv3x3_sym` and the Pallas K2 (interpret mode), Y against
+    `einsum("kiz,kzf->kif", W, Vinv[wf])` (the reference's Yb); float64 at
+    rtol 1e-12, float32 at rtol 2e-6, both plus that much of the largest
+    magnitude (XLA may contract the cofactors and the product into FMAs).
+    Its Vinv is `inv3x3_sym_ref` bit for bit."""
+    import jax.numpy as jnp
+    from linearsfm_tpu.ops import pallas_kernels as pk
+    from linearsfm_tpu.ops import schur as jschur
+
+    V = _inv3x3_input(name)
+    V = V if V.ndim == 4 else V[None]
+    P, N = V.shape[:2]
+    W, Wpf = _wy_lists(V, 3 * N // P + 5)
+    Vinv, Y = kernels.inv3x3_wy_ref(torch.from_numpy(V), torch.from_numpy(W),
+                                    torch.from_numpy(Wpf))
+    assert _nan_equal(Vinv, kernels.inv3x3_sym_ref(torch.from_numpy(V)))
+    assert Y.shape == W.shape and Y.dtype == Vinv.dtype == torch.from_numpy(
+        V).dtype
+    rtol = 2e-6 if V.dtype == np.float32 else 1e-12
+    flat = jnp.asarray(V.reshape(-1, 3, 3))
+    for want in (jschur.inv3x3_sym(flat), pk.inv3x3_sym(flat, interpret=True)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(Vinv.numpy().reshape(-1, 3, 3), want,
+                                   rtol=rtol,
+                                   atol=rtol * np.nanmax(np.abs(want)))
+    Vinv_j = np.asarray(jschur.inv3x3_sym(flat)).reshape(V.shape)
+    G = Vinv_j[np.arange(P)[:, None], Wpf[..., 1]]
+    Y_j = np.asarray(jnp.einsum("kiz,kzf->kif", W.reshape(-1, 6, 3),
+                                G.reshape(-1, 3, 3))).reshape(W.shape)
+    np.testing.assert_allclose(Y.numpy(), Y_j, rtol=rtol,
+                               atol=rtol * np.nanmax(np.abs(Y_j)))
+    assert np.isnan(Y.numpy()).any() == (name == "NaN block")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_inv3x3_wy_edges_on_cpu(dtype):
+    """Entries whose wf lies outside [0, N) give Y = 0 exactly, even with
+    non-finite W; in-range entries are the elementwise product in the
+    kernel's order; N = 0 gives Y = 0, K = 0 the inverse alone."""
+    V = _inv3x3_input("lane stack [P, N]").astype(dtype)     # [4, 75]
+    W, Wpf = _wy_lists(V, 40)
+    Wpf[:, 1, 1], Wpf[:, 2, 1], Wpf[:, 4, 1] = -1, 75, 1000
+    W[:, 4] = np.inf
+    V_t, W_t, Wpf_t = (torch.from_numpy(a) for a in (V, W, Wpf))
+    Vinv, Y = kernels.inv3x3_wy_ref(V_t, W_t, Wpf_t)
+    out = np.zeros(Wpf.shape[:2], bool)
+    out[:, [1, 2, 4]] = True
+    assert (Y.numpy()[out] == 0).all()
+    G = Vinv.numpy()[np.arange(4)[:, None], np.clip(Wpf[..., 1], 0, 74)]
+    with np.errstate(invalid="ignore"):     # inf * 0 in the out-of-range rows
+        want = (W[..., :, 0:1] * G[..., 0:1, :]
+                + W[..., :, 1:2] * G[..., 1:2, :]
+                + W[..., :, 2:3] * G[..., 2:3, :])
+    np.testing.assert_array_equal(Y.numpy()[~out], want[~out])
+    Vinv0, Y0 = kernels.inv3x3_wy_ref(V_t[:, :0], W_t, Wpf_t)
+    assert Vinv0.shape == (4, 0, 3, 3) and torch.equal(Y0,
+                                                       torch.zeros_like(W_t))
+    VinvK, YK = kernels.inv3x3_wy_ref(V_t, W_t[:, :0], Wpf_t[:, :0])
+    assert YK.shape == (4, 0, 6, 3) and torch.equal(VinvK, Vinv)
+
+
+def test_inv3x3_wy_dispatch_counts_only_kernel_launches():
+    """schur.inv3x3_wy takes the plain version on the CPU (no launch, also
+    for non-contiguous operands); a device without a kernel raises instead
+    of falling back."""
+    from linearsfm_tpu_torch.ops import schur
+
+    V = torch.from_numpy(_inv3x3_input("lane stack [P, N]"))
+    W, Wpf = (torch.from_numpy(a) for a in _wy_lists(V.numpy(), 30))
+    before = dict(kernels.launches)
+    for args in ((V, W, Wpf),
+                 (V.transpose(-1, -2), W.transpose(0, 1).contiguous()
+                  .transpose(0, 1), Wpf)):
+        got = schur.inv3x3_wy(*args)
+        want = kernels.inv3x3_wy_ref(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert kernels.launches == before
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in (V, W, Wpf)]
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.inv3x3_wy(*meta)
 
 
 def test_port_imports_no_jax():
@@ -448,3 +560,49 @@ def test_planned_kernel_main_path_stripe_on_cuda():
     want = kernels.blockcoo_to_dense_ref(
         *_masked_stripe(rows, cols, 2928, 2928), vals, M, 2928)
     assert torch.equal(got, want)
+
+
+# (name, P, N, K): the fused K2 at tile edges (256 entries a tile), N = 0
+# with K > 0, K = 0, several lanes, and operands off 16-byte alignment
+WY_CARD_CASES = [("K=0", 3, 50, 0), ("N=0 padding", 2, 0, 300),
+                 ("K=T-1", 1, 40, 255), ("K=T", 1, 40, 256),
+                 ("K=T+1", 1, 40, 257), ("lanes, odd P*K", 3, 70, 171),
+                 ("two tiles + 3", 1, 300, 515), ("unaligned", 1, 33, 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", WY_CARD_CASES, ids=lambda c: c[0])
+def test_inv3x3_wy_kernel_matches_plain_on_cuda(case, dtype):
+    """On the card the fused K2 equals its plain version bit for bit (NaN
+    where it is NaN) for both outputs, with zero and NaN blocks and entries
+    whose wf is outside [0, N); one launch per call."""
+    _needs_card()
+    name, P, N, K = case
+    g = torch.Generator(device="cuda").manual_seed(P * 1000 + N + K)
+    A = torch.randn((P, N + 1, 3, 3), generator=g, device="cuda", dtype=dtype)
+    V = A @ A.transpose(-1, -2)
+    if N > 11:
+        V[:, 7] = 0.0
+        V[:, 11, 1, 2] = V[:, 11, 2, 1] = float("nan")
+    W = torch.randn((P, K + 1, 6, 3), generator=g, device="cuda", dtype=dtype)
+    wf = torch.randint(-2, N + 2, (P, K + 1), generator=g, device="cuda")
+    Wpf = torch.stack([torch.zeros_like(wf), wf], dim=-1)
+    Wpf[:, ::7], W[:, ::7] = 0, 0.0                  # padding
+    if name == "unaligned":   # contiguous views 72 and 36 bytes in
+        V, W, Wpf = V[:, 1:], W[:, 1:], Wpf[:, 1:]
+    else:
+        V, W, Wpf = (t[:, :-1].contiguous() for t in (V, W, Wpf))
+    assert V.is_contiguous() and W.is_contiguous() and Wpf.is_contiguous()
+    n0 = kernels.launches["inv3x3_sym"]
+    got = kernels.inv3x3_wy(V, W, Wpf)
+    want = kernels.inv3x3_wy_ref(V, W, Wpf)
+    torch.cuda.synchronize()
+    assert kernels.launches["inv3x3_sym"] == n0 + (P * (N + K) > 0)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and _nan_equal(g_, w_), name
+    with pytest.raises(TypeError):
+        kernels.inv3x3_wy(V, W, Wpf.to(torch.int32))
+    if K > 1:
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.inv3x3_wy(V, W[:, ::2], Wpf[:, ::2])

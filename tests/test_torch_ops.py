@@ -19,6 +19,7 @@ from linearsfm_tpu.ops import rotations as jrot
 from linearsfm_tpu.ops import schur as jschur
 from linearsfm_tpu_torch import types
 from linearsfm_tpu_torch.ops import congruence as tcong
+from linearsfm_tpu_torch.ops import kernels
 from linearsfm_tpu_torch.ops import rotations as trot
 from linearsfm_tpu_torch.ops import schur as tschur
 
@@ -189,7 +190,7 @@ def test_inv3x3_and_info_vector_match_reference():
     A = rng.standard_normal((50, 3, 3))
     V = A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(3)
     V[7] = 0.0                                  # zero block stays zero
-    np.testing.assert_allclose(tschur.inv3x3_sym(t64(V)).numpy(),
+    np.testing.assert_allclose(kernels.inv3x3_sym(t64(V)).numpy(),
                                np.asarray(jschur.inv3x3_sym(jnp.asarray(V))),
                                atol=1e-12, rtol=1e-12)
     M, N = 6, 11
@@ -222,22 +223,34 @@ def _schur_inputs(dtype):
     return U, Uij, W, Wpf, Vinv, eP, eF, M
 
 
-@pytest.mark.parametrize("mode", ["f32 single-shot", "f32 chunked", "f64"])
+@pytest.mark.parametrize("mode", ["f32 single-shot", "f32 chunked", "f64",
+                                  "f32 fused Y", "f64 fused Y"])
 def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
-    """float32: rtol 1e-5 (plus 1e-5 of the largest magnitude) — the port
-    assembles A as D + D^T with a symmetrised diagonal and multiplies in
-    another order. float64: 1e-12."""
-    dtype = np.float64 if mode == "f64" else np.float32
+    """The reference forms Y = W Vinv[wf] from Vinv, the port takes Y. The
+    first three modes give the port the einsum of the reference's own Vinv
+    (random blocks); the "fused Y" modes start from SPD feature blocks V:
+    the reference inverts them with its jnp closed form, the port takes Y
+    from `schur.inv3x3_wy` (one K2 call). float32: rtol 1e-5 (plus 1e-5 of
+    the largest magnitude) — the port assembles A as D + D^T with a
+    symmetrised diagonal and multiplies in another order. float64: 1e-12."""
+    dtype = np.float64 if mode.startswith("f64") else np.float32
     U, Uij, W, Wpf, Vinv, eP, eF, M = _schur_inputs(dtype)
     if mode == "f32 chunked":    # ~3 feature stripes in both packages
         budget = 6 * M * 3 * 8 * 4
         monkeypatch.setattr(jschur, "_DENSE_W_BYTES", budget)
         monkeypatch.setenv("LINEARSFM_DENSE_W_BYTES", str(budget))
+    if mode.endswith("fused Y"):
+        A = np.random.default_rng(78).standard_normal((Vinv.shape[0], 3, 3))
+        V = (A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(3)).astype(dtype)
+        Vinv = np.asarray(jschur.inv3x3_sym(jnp.asarray(V)))
+        Y = tschur.inv3x3_wy(lane(V), lane(W), lane(Wpf, torch.int64))[1]
+    else:
+        Y = lane(np.einsum("kiz,kzf->kif", W, Vinv[Wpf[:, 1]]))
     S_j, E_j = jschur._assemble_schur_dense(
         *(jnp.asarray(a) for a in (U, Uij, W, Wpf, Vinv, eP, eF)), M)
     S_t, E_t = tschur._assemble_schur_dense(
         lane(U), lane(Uij, torch.int64), lane(W), lane(Wpf, torch.int64),
-        lane(Vinv), lane(eP), lane(eF), M)
+        Y, lane(eP), lane(eF), M)
     S_j, E_j = np.asarray(S_j), np.asarray(E_j)
     if dtype == np.float64:
         np.testing.assert_allclose(S_t[0].numpy(), S_j, atol=1e-12)
