@@ -13,10 +13,14 @@ Phases, each printing its lines; any failure exits non-zero:
    batches, float64, and the level-1 and root shapes of the main path,
    including a feature stripe as a list of its own and, as the Schur
    assembly runs them, column windows of one plan (`coo_plan`): the root
-   stripe and stereo level 10's two stripes. Exact where no two entries
-   share a coordinate, else rtol 1e-6 (plus 1e-6 of the largest
-   magnitude); each line says whether the result was exact. At the
-   main-path shapes, CUDA-event times over loops of calls: the kernel alone
+   stripe and stereo level 10's two stripes. Every main-path list runs in
+   float32 and again in float64 (the direct levels of the entry point's
+   paths), each through both wrappers: a plan of its own list
+   (`blockcoo_to_dense`) and a shared plan (`blockcoo_to_dense_planned`).
+   Exact where no two entries share a coordinate, else rtol 1e-6 (plus
+   1e-6 of the largest magnitude); each line says whether the result was
+   exact. At the main-path shapes, in both dtypes, CUDA-event times over
+   loops of calls: the kernel alone
    on a prebuilt plan (and its device time, as phase 4 takes it), the
    wrapper (plan + launch), the plain version and the
    library yardstick (torch.zeros + one index_put_ with accumulate=True on
@@ -47,11 +51,28 @@ Phases, each printing its lines; any failure exits non-zero:
    and K1 and K2 launched;
 7. the mono main path: the same set in mono (pose 0 is an explicit block:
    ids 0..2,049) through `DeviceTreeSolver("mono", ...)`, checked the same
-   way against the oracle's 0.014352172.
+   way against the oracle's 0.014352172;
+8. the entry points: both 2,048-map sets written as localmap_<i>.txt with
+   the port's writer; `python3 -m linearsfm_tpu_torch.cli ... --check` as
+   a subprocess with the default flags (device executor, `--method
+   direct`, on the GPU) for stereo and mono; `cli.main([..., "--exec",
+   "host"])` in process for stereo. Each must exit 0 with `LinearSFM
+   Check: OK`, read with the C parser, and write a pose file with every id
+   and an ATE within 1e-6 of the oracle's; the host run's poses agree with
+   the device executor's within 2e-6. The CLI's solve, stereo and mono,
+   and the host executor run once more in process with every K1 call held
+   against the plain version on its own inputs (exact, or rtol 1e-6 with
+   duplicates), and as many float64 calls as the runs above launched; the
+   CLI's solve is then timed warm. Then checkpoint/resume of both
+   executors on the 13-map stereo and 11-map mono trees: resumed from the
+   newest checkpoint and from level 2's, poses within 1e-9 of the full run.
+   Each run prints its wall, reader, host phases and kernel launches.
 
 The kernel launch counts are set to 0 just before each main path's timed
 run and read just after it; the warm run checks that K2 ran at the shapes
-phase 4 timed. The line before the last is the kernel record (per kernel:
+phase 4 timed. The CLI runs report their own counts (pipeline log); the
+host run's are set to 0 before `cli.main` and read after it. Every path
+must launch K1 and K2. The line before the last is the kernel record (per kernel:
 launches, max error, kernel, plain, bound and library times and what the
 library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
 float32); the last line is {"ok": true, "device": {...}}.
@@ -60,6 +81,7 @@ float32); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -148,6 +170,25 @@ def _library_inputs(rows, cols, vals, M, N):
             vals[ok].reshape(-1))
 
 
+def _k1_check(name, got, ref, dup, quiet=False):
+    """K1's output against its plain version's: exact where no two entries
+    share a coordinate, else rtol 1e-6 (plus 1e-6 of the largest
+    magnitude). Returns the largest absolute error."""
+    import torch
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    exact = torch.equal(got, ref)
+    if dup:
+        scale = float(ref.abs().max()) if ref.numel() else 0.0
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * scale)
+    elif not exact:
+        raise AssertionError(f"K1 {name}: not exact, max err {err}")
+    if not quiet:
+        print(f"k1 {name}: out {list(got.shape)} max_abs_err={err:.3e} "
+              f"duplicates={'yes' if dup else 'no'} "
+              f"{'exact' if exact else 'within rtol 1e-6'} ok", flush=True)
+    return err
+
+
 def _k1_bound_ms(P, M, N, R, C, esz, nnz):
     """Least time of one K1 launch: its output written once plus its
     entries (values, permutation and column, 4 bytes each) and row offsets
@@ -197,6 +238,10 @@ def phase_kernels():
             _coo_case(g, 2, 89600, 1024, 7712, 3, sort_rows=True,
                       zero_frac=0.03), [(0, 3856), (3856, 3856)]),
     }
+    # the main path's lists run again in float64 (the direct levels: the
+    # CLI's default and the host executor's dense levels), each through
+    # both wrappers (a plan of its own list, and a shared plan)
+    main = ("level1 A 6x6", "level1 W 6x3", "root A 6x6", "root W stripe 6x3")
     timed = ("level1 A 6x6", "level1 W 6x3", "root A 6x6",
              "root W stripe 6x3 (plan)", "level10 W stripes 6x3 (plan)")
     max_err = 0.0
@@ -204,17 +249,7 @@ def phase_kernels():
 
     def check(name, got, ref, dup):
         nonlocal max_err
-        err = float((got - ref).abs().max()) if ref.numel() else 0.0
-        max_err = max(max_err, err)
-        exact = torch.equal(got, ref)
-        if dup:
-            scale = float(ref.abs().max())
-            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * scale)
-        elif not exact:
-            raise AssertionError(f"K1 {name}: not exact, max err {err}")
-        print(f"k1 {name}: out {list(got.shape)} max_abs_err={err:.3e} "
-              f"duplicates={'yes' if dup else 'no'} "
-              f"{'exact' if exact else 'within rtol 1e-6'} ok", flush=True)
+        max_err = max(max_err, _k1_check(name, got, ref, dup))
 
     def timing(name, kernel, wrapper, plain, library, bound):
         # alternate plain, kernel, kernel, plain (wrapper and yardstick
@@ -239,55 +274,83 @@ def phase_kernels():
               f"index_put_) {lib:.4f} ms; plain {p1:.3f}/{p2:.3f} ms "
               f"(loops of {reps})", flush=True)
 
-    for name, (rows, cols, vals, M, N) in cases.items():
-        got = kernels.blockcoo_to_dense(rows, cols, vals, M, N)
-        ref = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
-        torch.cuda.synchronize()
-        check(name, got, ref, _has_duplicates(rows, cols, M, N))
-        del got, ref
-        if name not in timed:
-            continue
-        plan = kernels.coo_plan(rows, cols, M, N)
-        shape, idx, v = _library_inputs(rows, cols, vals, M, N)
-        P, _, R, C = vals.shape
-        timing(name,
-               lambda: kernels.blockcoo_to_dense_planned(plan, vals),
-               lambda: kernels.blockcoo_to_dense(rows, cols, vals, M, N),
-               lambda: kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N),
-               lambda: torch.zeros(shape, device="cuda",
-                                   dtype=vals.dtype).index_put_(
-                   idx, v, accumulate=True),
-               _k1_bound_ms(P, M, N, R, C, vals.element_size(),
-                            int(idx[0].numel()) // (R * C)))
-        del plan, idx, v
+    def dtypes(name, vals):
+        """(tag, values) in the case's own dtype, and in float64 for the
+        main path's lists."""
+        out = [(name, vals)]
+        if name in main or name.endswith("(plan)"):
+            out.append((f"float64 {name}", vals.to(torch.float64)))
+        return out
 
-    for name, ((rows, cols, vals, M, N), wins) in windowed.items():
-        plan = kernels.coo_plan(rows, cols, M, N)
-        for lo, width in wins:
-            srows, scols = _masked_stripe(rows, cols, lo, width)
-            got = kernels.blockcoo_to_dense_planned(plan, vals, lo, width)
-            ref = kernels.blockcoo_to_dense_ref(srows, scols, vals, M, width)
+    for name, (rows, cols, vals0, M, N) in cases.items():
+        dup = _has_duplicates(rows, cols, M, N)
+        for tag, vals in dtypes(name, vals0):
+            ref = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
+            got = kernels.blockcoo_to_dense(rows, cols, vals, M, N)
             torch.cuda.synchronize()
-            check(f"{name} window [{lo}, {lo + width})", got, ref,
-                  _has_duplicates(srows, scols, M, width))
-            del got, ref
-        lo, width = wins[0]
-        srows, scols = _masked_stripe(rows, cols, lo, width)
-        shape, idx, v = _library_inputs(srows, scols, vals, M, width)
-        P, _, R, C = vals.shape
-        # the wrapper: a plan of the stripe's own list and one launch
-        timing(name,
-               lambda: kernels.blockcoo_to_dense_planned(plan, vals, lo,
-                                                         width),
-               lambda: kernels.blockcoo_to_dense(srows, scols, vals, M, width),
-               lambda: kernels.blockcoo_to_dense_ref(srows, scols, vals, M,
+            check(tag, got, ref, dup)
+            del got
+            if name in main:
+                plan = kernels.coo_plan(rows, cols, M, N)
+                got = kernels.blockcoo_to_dense_planned(plan, vals)
+                torch.cuda.synchronize()
+                check(f"{tag} (plan)", got, ref, dup)
+                del got, plan
+            del ref
+            if name not in timed:
+                continue
+            plan = kernels.coo_plan(rows, cols, M, N)
+            shape, idx, v = _library_inputs(rows, cols, vals, M, N)
+            P, _, R, C = vals.shape
+            timing(tag,
+                   lambda: kernels.blockcoo_to_dense_planned(plan, vals),
+                   lambda: kernels.blockcoo_to_dense(rows, cols, vals, M, N),
+                   lambda: kernels.blockcoo_to_dense_ref(rows, cols, vals, M,
+                                                         N),
+                   lambda: torch.zeros(shape, device="cuda",
+                                       dtype=vals.dtype).index_put_(
+                       idx, v, accumulate=True),
+                   _k1_bound_ms(P, M, N, R, C, vals.element_size(),
+                                int(idx[0].numel()) // (R * C)))
+            del plan, idx, v
+
+    for name, ((rows, cols, vals0, M, N), wins) in windowed.items():
+        plan = kernels.coo_plan(rows, cols, M, N)
+        for tag, vals in dtypes(name, vals0):
+            for lo, width in wins:
+                srows, scols = _masked_stripe(rows, cols, lo, width)
+                dup = _has_duplicates(srows, scols, M, width)
+                ref = kernels.blockcoo_to_dense_ref(srows, scols, vals, M,
+                                                    width)
+                got = kernels.blockcoo_to_dense_planned(plan, vals, lo, width)
+                torch.cuda.synchronize()
+                check(f"{tag} window [{lo}, {lo + width})", got, ref, dup)
+                del got
+                # the same stripe through the wrapper: a plan of its own list
+                got = kernels.blockcoo_to_dense(srows, scols, vals, M, width)
+                torch.cuda.synchronize()
+                check(f"{tag} window [{lo}, {lo + width}) (own list)", got,
+                      ref, dup)
+                del got, ref
+            lo, width = wins[0]
+            srows, scols = _masked_stripe(rows, cols, lo, width)
+            shape, idx, v = _library_inputs(srows, scols, vals, M, width)
+            P, _, R, C = vals.shape
+            # the wrapper: a plan of the stripe's own list and one launch
+            timing(tag,
+                   lambda: kernels.blockcoo_to_dense_planned(plan, vals, lo,
+                                                             width),
+                   lambda: kernels.blockcoo_to_dense(srows, scols, vals, M,
                                                      width),
-               lambda: torch.zeros(shape, device="cuda",
-                                   dtype=vals.dtype).index_put_(
-                   idx, v, accumulate=True),
-               _k1_bound_ms(P, M, width, R, C, vals.element_size(),
-                            int(idx[0].numel()) // (R * C)))
-        del plan, idx, v
+                   lambda: kernels.blockcoo_to_dense_ref(srows, scols, vals,
+                                                         M, width),
+                   lambda: torch.zeros(shape, device="cuda",
+                                       dtype=vals.dtype).index_put_(
+                       idx, v, accumulate=True),
+                   _k1_bound_ms(P, M, width, R, C, vals.element_size(),
+                                int(idx[0].numel()) // (R * C)))
+            del idx, v
+        del plan
     return max_err, times
 
 
@@ -526,7 +589,7 @@ def _k2_shapes(datasets):
 
 def _poses_by_id(lm):
     from linearsfm_tpu_torch import types
-    h = types.to_numpy(lm)
+    h = types.host_fields(lm)
     return {int(i): h.poses[s] for s, i in enumerate(h.pose_ids) if i >= 0}
 
 
@@ -654,7 +717,327 @@ def phase_main_path(datatype, maps, poses_gt, shapes):
     return launched
 
 
+def _write_dataset(maps, datatype, out_dir):
+    """The maps as localmap_<i>.txt with the port's writer (the synth
+    package's own writer goes through the JAX package)."""
+    from linearsfm_tpu_torch.io import localmap as lio
+    for i, m in enumerate(maps):
+        lio.write_local_map(
+            os.path.join(out_dir, f"localmap_{i + 1}.txt"),
+            dict(pose_ids=m.pose_ids, poses=m.poses, feat_ids=m.feat_ids,
+                 feats=m.feats, U=m.U, Uij=m.Uij, W=m.W, Wpf=m.Wpf, V=m.V,
+                 gauge=m.gauge), datatype)
+
+
+def _pose_file_check(tag, path, datatype, n, poses_gt):
+    """Ids and ATE of a pose file against the oracle's; returns the poses
+    by id."""
+    import numpy as np
+    from linearsfm_tpu_torch.io import localmap as lio
+    ids, poses = lio.read_poses(path)
+    want = set(range(1, n + 1)) if datatype == "stereo" else set(range(n + 2))
+    if sorted(ids.tolist()) != sorted(want) or not np.isfinite(poses).all():
+        raise AssertionError(f"{tag}: pose file holds {len(ids)} ids "
+                             f"(want {len(want)}), finite="
+                             f"{np.isfinite(poses).all()}")
+    err = np.linalg.norm(poses[:, :3] - poses_gt[ids, :3], axis=1)
+    ate = float(np.sqrt(np.mean(np.square(err))))
+    oracle = ORACLE_ATE_2048[datatype]
+    print(f"{tag}: pose file ATE {ate:.9f} (oracle {oracle:.9f}, diff "
+          f"{ate - oracle:+.3e}), {len(ids)} poses", flush=True)
+    if not abs(ate - oracle) <= 1e-6:
+        raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
+    return dict(zip(ids.tolist(), poses))
+
+
+def _run_log(text):
+    """What a pipeline run logged: reader, kernel launches, host phases."""
+    import ast
+    import re
+    m = re.search(r"Read (\d+) local maps in ([0-9.]+) s \((\w+) parser\)",
+                  text)
+    k = re.search(r"Kernel launches: (\{.*\})", text)
+    h = re.search(r"Solver host phases: (\{.*\})", text)
+    w = re.search(r"Wrote the results in ([0-9.]+) s", text)
+    p = re.search(r"Peak device memory: ([0-9.]+) GiB", text)
+    if not (m and k and h and w and p):
+        raise AssertionError(f"pipeline log lines missing:\n{text[-2000:]}")
+    return dict(read_s=float(m.group(2)), parser=m.group(3),
+                launches=ast.literal_eval(k.group(1)), phases=h.group(1),
+                write_s=float(w.group(1)), peak_gib=float(p.group(1)))
+
+
+def _cli_subprocess(tag, data, datatype, n, poses_gt, out_dir):
+    """`python3 -m linearsfm_tpu_torch.cli` with the default flags (device
+    executor, --method direct, on the GPU) and --check."""
+    typ = "Stereo" if datatype == "stereo" else "Monocular"
+    pose = os.path.join(out_dir, f"pose_cli_{datatype}.txt")
+    cmd = [sys.executable, "-m", "linearsfm_tpu_torch.cli", "-path", data,
+           "-num", str(n), "-type", typ, "-p", pose,
+           "-f", os.path.join(out_dir, f"feat_cli_{datatype}.txt"),
+           "-st", os.path.join(out_dir, f"state_cli_{datatype}.txt"),
+           "--check"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "LinearSFM Check: OK" not in r.stdout:
+        raise AssertionError(f"{tag}: exit {r.returncode}\n{r.stdout[-2000:]}"
+                             f"\n{r.stderr[-3000:]}")
+    got = _run_log(r.stderr)
+    solve = float(r.stdout.split("Total Used Time:")[1].split()[0])
+    print(f"{tag}: exit 0, LinearSFM Check: OK; process wall {wall:.3f} s, "
+          f"read {got['read_s']:.3f} s ({got['parser']} parser), solve "
+          f"{solve:.3f} s, write {got['write_s']:.3f} s, peak device memory "
+          f"{got['peak_gib']:.2f} GiB, host phases {got['phases']}, kernel "
+          f"launches {got['launches']}", flush=True)
+    if got["parser"] != "C":
+        raise AssertionError(f"{tag}: the C parser was not used")
+    return _pose_file_check(tag, pose, datatype, n, poses_gt), got
+
+
+class _K1InSitu:
+    """While active, every K1 call of the Schur assembly
+    (`schur.densify_blocks`, `schur.densify_planned`) is held against the
+    plain version on its own inputs, by the rule of phase 3 (`_k1_check`):
+    the main path's own shapes and dtypes. Counts the calls by dtype and
+    keeps the largest error and the largest output."""
+
+    def __enter__(self):
+        from linearsfm_tpu_torch.ops import kernels, schur
+        self.calls, self.max_err, self.largest = {}, 0.0, ()
+        self._saved = schur.densify_blocks, schur.densify_planned
+        blocks, planned = self._saved
+
+        def held(got, rows, cols, vals, M, N):
+            import torch
+            ref = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
+            torch.cuda.synchronize()
+            dn = str(vals.dtype).split(".")[-1]
+            err = _k1_check(f"in situ {dn} {list(got.shape)}", got, ref,
+                            _has_duplicates(rows, cols, M, N), quiet=True)
+            self.calls[dn] = self.calls.get(dn, 0) + 1
+            self.max_err = max(self.max_err, err)
+            if got.numel() > math.prod(self.largest):
+                self.largest = tuple(got.shape)
+            return got
+
+        def densify_blocks(rows, cols, vals, M, N):
+            return held(blocks(rows, cols, vals, M, N), rows, cols, vals, M, N)
+
+        def densify_planned(plan, vals, col_lo=0, width=None):
+            w = plan.N - col_lo if width is None else width
+            rows, cols = _masked_stripe(plan.rows, plan.cols, col_lo, w)
+            return held(planned(plan, vals, col_lo, width), rows, cols, vals,
+                        plan.M, w)
+        schur.densify_blocks, schur.densify_planned = (densify_blocks,
+                                                       densify_planned)
+        return self
+
+    def __exit__(self, *exc):
+        from linearsfm_tpu_torch.ops import schur
+        schur.densify_blocks, schur.densify_planned = self._saved
+        return False
+
+    def report(self, tag, want=None):
+        """One line of what was held; fails if no call (or, given `want`,
+        not that many float64 calls) was seen."""
+        print(f"{tag}: every K1 call held against the plain version in situ "
+              f"(exact, or rtol 1e-6 with duplicates): calls by dtype "
+              f"{self.calls}, largest output {list(self.largest)}, "
+              f"max_abs_err {self.max_err:.3e} ok", flush=True)
+        if not self.calls or (want is not None
+                              and self.calls.get("float64") != want):
+            raise AssertionError(f"{tag}: K1 calls held in situ "
+                                 f"{self.calls}, want {want} float64")
+
+
+def _warm_direct(datatype, maps, want_k1):
+    """The CLI's solve in this warm process: `DeviceTreeSolver(datatype,
+    method="direct")` once to warm up, with every K1 call held against the
+    plain version in situ (`_K1InSitu`; `want_k1` float64 calls), then
+    timed with per-level CUDA-event walls (the CLI subprocess pays CUDA and
+    library start-up in its solve)."""
+    import torch
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+    tag = f"entry warm device direct {datatype}"
+    solver = DeviceTreeSolver(datatype, method="direct", device="cuda")
+    with _K1InSitu() as held:
+        solver.run(maps)
+    held.report(tag, want_k1)
+    metrics = LevelMetrics()
+    t0 = time.perf_counter()
+    solver.run(maps, metrics=metrics, time_levels=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{tag}: solve {wall:.3f} s in process (warm), host phases "
+          f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }, "
+          f"level walls ms "
+          f"{[round(r['exec_wall'] * 1e3, 1) for r in metrics.records]}",
+          flush=True)
+
+
+def _ckpt_resume(tag, make_solver, maps):
+    """A full run with checkpoints, a resumed run from the newest one and
+    one from an earlier level's, copied aside: poses within 1e-9."""
+    import json
+    import shutil
+    import tempfile
+    import numpy as np
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+
+    poses = _poses_by_id
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        ck, early = os.path.join(tmp, "ckpt"), os.path.join(tmp, "early")
+        metrics = LevelMetrics()
+        full = poses(make_solver().run(maps, ckpt_dir=ck, metrics=metrics))
+        newest = poses(make_solver().run(maps, ckpt_dir=ck, resume=True))
+        shutil.copytree(ck, early)
+        level = 2
+        count = next(r["n_maps"] for r in metrics.records
+                     if r["level"] == level)
+        if os.path.exists(os.path.join(early, "manifest.json")):
+            man = ("manifest.json", dict(level=level, count=count))
+        else:
+            man = ("stacked_manifest.json", dict(level=level))
+        with open(os.path.join(early, man[0]), "w") as fh:
+            json.dump(man[1], fh)
+        again = poses(make_solver().run(maps, ckpt_dir=early, resume=True))
+        files = len(os.listdir(ck))
+    diff = 0.0
+    for name, run in (("newest", newest), (f"level {level}", again)):
+        if set(run) != set(full):
+            raise AssertionError(f"{tag}: resumed from {name}: pose ids "
+                                 f"differ")
+        diff = max(diff, max(float(np.abs(run[k] - full[k]).max())
+                             for k in full))
+    print(f"{tag}: full run ({len(metrics.records)} levels, {files} "
+          f"checkpoint files), resumed from the newest and from level "
+          f"{level}: max pose diff {diff:.3e} (atol 1e-9) ok", flush=True)
+    if not diff <= 1e-9:
+        raise AssertionError(f"{tag}: resumed poses differ by {diff}")
+
+
+def phase_entry_points(datasets):
+    """The reference-compatible entry point at 2,048 maps: text datasets
+    written with the port's writer, the CLI as a subprocess (defaults:
+    device executor, direct, GPU) for stereo and mono, the host executor
+    in process through `cli.main` for stereo, and checkpoint/resume of
+    both executors on the small trees. Returns the kernel launches of the
+    stereo host run and of each CLI run."""
+    import contextlib
+    import io
+    import logging
+    import re
+    import tempfile
+    import numpy as np
+    from synth import generate as gen
+    from linearsfm_tpu_torch import cli, native
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.core.tree import TreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+
+    n = 2048
+    t_phase = time.perf_counter()
+    launched = {}
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    if native.get_fastparse() is None:
+        raise AssertionError("entry: the C local-map parser did not build")
+    print(f"entry: C local-map parser built (gcc) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        data = {}
+        for d, (maps, _, _) in datasets.items():
+            data[d] = os.path.join(tmp, d)
+            os.makedirs(data[d])
+            t0 = time.perf_counter()
+            _write_dataset(maps, d, data[d])
+            size = sum(os.path.getsize(os.path.join(data[d], f))
+                       for f in os.listdir(data[d]))
+            print(f"entry {d}: wrote {n} local maps ({size / 2**20:.1f} MiB) "
+                  f"with the port's writer in {time.perf_counter() - t0:.3f} "
+                  f"s", flush=True)
+        cli_poses = {}
+        for d in ("stereo", "mono"):
+            cli_poses[d], got = _cli_subprocess(
+                f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
+            launched[f"cli {d}"] = got["launches"]
+        for d in ("stereo", "mono"):
+            _warm_direct(d, datasets[d][0], launched[f"cli {d}"][
+                "blockcoo_to_dense"])
+
+        # the host executor, in process, counts from 0
+        tag = "entry host stereo"
+        pose = os.path.join(tmp, "pose_host_stereo.txt")
+        logs = io.StringIO()
+        handler = logging.StreamHandler(logs)
+        pkg_log = logging.getLogger("linearsfm_tpu_torch")
+        pkg_log.addHandler(handler)
+        pkg_log.setLevel(logging.INFO)
+        out = io.StringIO()
+        for k in kernels.launches:
+            kernels.launches[k] = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["-path", data["stereo"], "-num", str(n),
+                               "-type", "Stereo", "-p", pose, "--exec",
+                               "host", "--check"])
+        finally:
+            pkg_log.removeHandler(handler)
+        wall = time.perf_counter() - t0
+        launched["host stereo"] = dict(kernels.launches)
+        if rc != 0 or "LinearSFM Check: OK" not in out.getvalue():
+            raise AssertionError(f"{tag}: exit {rc}\n{out.getvalue()[-2000:]}")
+        got = _run_log(logs.getvalue())
+        solve = float(out.getvalue().split("Total Used Time:")[1].split()[0])
+        print(f"{tag}: exit 0, LinearSFM Check: OK; wall {wall:.3f} s, read "
+              f"{got['read_s']:.3f} s ({got['parser']} parser), solve "
+              f"{solve:.3f} s, write {got['write_s']:.3f} s, peak device "
+              f"memory {got['peak_gib']:.2f} GiB, host phases of the last "
+              f"level {got['phases']}, kernel launches "
+              f"{launched['host stereo']}", flush=True)
+        if got["parser"] != "C":
+            raise AssertionError(f"{tag}: the C parser was not used")
+        levels = re.findall(r"Level (\d+) done \(\d+ maps, ([0-9.]+)s\)",
+                            logs.getvalue())
+        print(f"{tag}: seconds from the tree's start to the end of each "
+              f"level {[float(t) for _, t in levels]}", flush=True)
+        host = _pose_file_check(tag, pose, "stereo", n, datasets["stereo"][1])
+        diff = max(float(np.abs(host[k] - cli_poses["stereo"][k]).max())
+                   for k in host)
+        print(f"{tag}: pose file vs the device executor's: max |diff| "
+              f"{diff:.3e} (limit 2e-6)", flush=True)
+        if not diff <= 2e-6:
+            raise AssertionError(f"{tag}: pose files differ by {diff}")
+        # the host executor once more, its K1 calls held in situ
+        t0 = time.perf_counter()
+        with _K1InSitu() as held:
+            TreeSolver("stereo", device="cuda").run(datasets["stereo"][0])
+        held.report(f"{tag} (again, {time.perf_counter() - t0:.1f} s)",
+                    launched["host stereo"]["blockcoo_to_dense"])
+    for path, counts in launched.items():
+        for k, c in counts.items():
+            if c <= 0:
+                raise AssertionError(f"entry {path}: kernel {k} was never "
+                                     f"launched")
+
+    for datatype, m in (("stereo", 13), ("mono", 11)):
+        maps, _, _ = gen.make_dataset(m, datatype, noise=0.01, seed=5)
+        for name, make in (
+                ("device", lambda: DeviceTreeSolver(datatype, device="cuda")),
+                ("host", lambda: TreeSolver(datatype, device="cuda"))):
+            _ckpt_resume(f"entry ckpt {m}-map {datatype} {name}", make, maps)
+    print(f"entry points: phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return launched
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -685,6 +1068,7 @@ def main() -> int:
     phase_small_trees()
     paths = {d: phase_main_path(d, maps, gt, shapes)
              for d, (maps, gt, _) in datasets.items()}
+    paths.update(phase_entry_points(datasets))
 
     def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}
@@ -696,6 +1080,8 @@ def main() -> int:
                 "bound_by": t.get("bound_by", "bytes"),
                 "library_ms": t["library_ms"], "library": library}
 
+    print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     # K2's figures: the fused kernel (V^-1 and Y = W V^-1[wf]) at the stereo
     # root, float32, by device time
     print(json.dumps({"kernels": [

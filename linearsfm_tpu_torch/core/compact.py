@@ -1,10 +1,12 @@
-"""Host ingest: compact and stack a list of local maps (numpy).
+"""Host compaction of local maps (numpy).
 
-Counterpart of `linearsfm_tpu/core/compact.py:compact_stack`: gather valid
-poses/features to the front, drop zero and dead blocks, merge duplicate
-block coordinates (canonical upper storage for U), and re-pad every map to
-shared bucketed capacities — one vectorized pass over globally-offset keys
-for the whole batch.
+Counterpart of `linearsfm_tpu/core/compact.py`: gather valid poses/features
+to the front, drop zero and dead blocks, merge duplicate block coordinates
+(canonical upper storage for U), and re-pad to bucketed capacities.
+`compact` does one map (the host executor, between levels);
+`compact_stack` does a whole list in one vectorized pass over
+globally-offset keys and re-pads every map to shared capacities (the
+ingest of the device executor).
 """
 
 from __future__ import annotations
@@ -12,6 +14,78 @@ from __future__ import annotations
 import numpy as np
 
 from .. import types
+
+
+def compact(lm, bucket: int = 16, u_bucket: int = 64) -> types.LocalMap:
+    """An equivalent host-form LocalMap of one map (any object
+    `types.host_fields` accepts, e.g. a one-map torch LocalMap, copied to
+    the host field by field) with tight, bucketed capacities."""
+    lm = types.host_fields(lm)
+    pose_ids, poses = lm.pose_ids, lm.poses
+    feat_ids, feats = lm.feat_ids, lm.feats
+    U, Uij, W, Wpf, V = lm.U, lm.Uij, lm.W, lm.Wpf, lm.V
+
+    pvalid = pose_ids >= 0
+    fvalid = feat_ids >= 0
+    # old slot -> new slot
+    pmap = np.full(lm.M, -1, np.int64)
+    pmap[pvalid] = np.arange(pvalid.sum())
+    fmap = np.full(lm.N, -1, np.int64)
+    fmap[fvalid] = np.arange(fvalid.sum())
+
+    m, n = int(pvalid.sum()), int(fvalid.sum())
+    Mo = types.bucket(m, bucket)
+    No = types.bucket(n, bucket)
+
+    def merge(blocks, keys, shape):
+        """Sum the blocks of equal keys; (blocks, keys) in key order."""
+        order = np.argsort(keys, kind="stable")
+        uniq, inv = np.unique(keys[order], return_inverse=True)
+        acc = np.zeros((len(uniq),) + shape)
+        np.add.at(acc, inv, blocks[order])
+        return acc, uniq
+
+    # ---- U: drop zero blocks / dead slots, canonical upper (i<=j), merge
+    nz = np.any(U != 0, axis=(1, 2))
+    i, j = pmap[Uij[:, 0]], pmap[Uij[:, 1]]
+    nz &= (i >= 0) & (j >= 0)
+    i, j, Ub = i[nz], j[nz], U[nz]
+    lower = i > j
+    i2 = np.where(lower, j, i)
+    j2 = np.where(lower, i, j)
+    Ub = np.where(lower[:, None, None], np.swapaxes(Ub, 1, 2), Ub)
+    Um, ukey = merge(Ub, i2 * Mo + j2, (6, 6))
+    Uij_m = np.stack([ukey // Mo, ukey % Mo], axis=1)
+
+    # ---- W: same
+    nzw = np.any(W != 0, axis=(1, 2))
+    p, f = pmap[Wpf[:, 0]], fmap[Wpf[:, 1]]
+    nzw &= (p >= 0) & (f >= 0)
+    Wm, wkey = merge(W[nzw], p[nzw] * No + f[nzw], (6, 3))
+    Wpf_m = np.stack([wkey // No, wkey % No], axis=1)
+
+    KU = types.bucket(len(Um), u_bucket)
+    KW = types.bucket(len(Wm), u_bucket)
+
+    def pad(x, k, fill=0.0):
+        out = np.full((k,) + x.shape[1:], fill, x.dtype)
+        out[: len(x)] = x
+        return out
+
+    dtype = np.dtype(lm.dtype)
+    return types.LocalMap(
+        pose_ids=pad(pose_ids[pvalid], Mo, -1).astype(np.int32),
+        poses=pad(poses[pvalid], Mo).astype(dtype),
+        feat_ids=pad(feat_ids[fvalid], No, -1).astype(np.int32),
+        feats=pad(feats[fvalid], No).astype(dtype),
+        U=pad(Um, KU).astype(dtype),
+        Uij=pad(Uij_m, KU).astype(np.int32),
+        W=pad(Wm, KW).astype(dtype),
+        Wpf=pad(Wpf_m, KW).astype(np.int32),
+        V=pad(V[fvalid], No).astype(dtype),
+        n_poses=np.int32(m), n_feats=np.int32(n),
+        n_U=np.int32(len(Um)), n_W=np.int32(len(Wm)),
+        gauge=lm.gauge)
 
 
 def compact_stack(lms: list, bucket: int = 16,

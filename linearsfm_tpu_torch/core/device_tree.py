@@ -6,15 +6,19 @@ The whole level — all pairwise joins, the every-2nd-map re-gauge to the
 final frame, the odd carry and the compaction — runs on lane-stacked
 [count, ...caps] tensors, so the maps never leave the device between levels.
 The host only builds the capacity plan (core/plan.py), drives one level after
-another, and reads the residuals at the end.
+another, and reads the residuals at the end. With a checkpoint directory
+each level boundary is also saved (`utils/checkpoint.save_stacked`, one
+device-to-host copy per level), and a resumed run restarts from the newest
+one whose shapes the plan confirms.
 
 Not ported (TPU- or JAX-specific): the Pallas vmap-width gate and
-the <=1,024-lane split, AOT warm-up, mesh modes and checkpointing.
+the <=1,024-lane split, AOT warm-up and the mesh modes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
@@ -22,10 +26,14 @@ import torch
 
 from .. import types
 from ..ops import congruence
+from ..parallel import level as plevel
+from ..utils import checkpoint
 from . import compact as compact_mod
 from . import dcompact
 from . import join as join_mod
 from . import plan as plan_mod
+
+log = logging.getLogger("linearsfm_tpu_torch")
 
 
 def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
@@ -82,6 +90,7 @@ class DeviceTreeSolver:
     sweeps on lanes whose residual exceeds `escalate_tol`. `mixed_max_m`
     runs levels up to that size with f32 information (off by default);
     `direct_min_m` solves levels from that size with a plain f64 Cholesky.
+    progress: log each level as it is dispatched.
     """
 
     def __init__(self, datatype: str = "stereo", method: str = "refine",
@@ -89,8 +98,8 @@ class DeviceTreeSolver:
                  mixed_max_m: int = 0,
                  direct_min_m: int = 0,
                  top_min_m: int = 256, top_iters: int = 16,
-                 escalate_tol: float = 1e-8, pcg_exit_tol: float = 1e-14, *,
-                 device):
+                 escalate_tol: float = 1e-8, pcg_exit_tol: float = 1e-14,
+                 progress: bool = False, *, device):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
@@ -106,20 +115,21 @@ class DeviceTreeSolver:
         self.top_iters = top_iters
         self.escalate_tol = escalate_tol
         self.pcg_exit_tol = pcg_exit_tol
+        self.progress = progress
         self.join_count = 0
         self.last_residuals: dict = {}
         self._last_timing: dict = {}
 
     def _cfg(self, joined_m: int) -> join_mod.JoinConfig:
         if joined_m <= self.mixed_max_m:
-            return join_mod.JoinConfig(method="direct",
+            return join_mod.JoinConfig(method="direct", dense_schur=True,
                                        info_dtype=torch.float32, with_res=True)
         if self.direct_min_m and joined_m >= self.direct_min_m:
-            return join_mod.JoinConfig(method="direct",
+            return join_mod.JoinConfig(method="direct", dense_schur=True,
                                        info_dtype=torch.float64, with_res=True)
         top = joined_m >= self.top_min_m
         return join_mod.JoinConfig(
-            method=self.method,
+            method=self.method, dense_schur=True,
             refine_iters=self.top_iters if top else self.refine_iters,
             info_dtype=torch.float64, with_res=True,
             escalate_iters=self.top_iters if top else 0,
@@ -128,14 +138,9 @@ class DeviceTreeSolver:
 
     # -- building blocks -----------------------------------------------------
     def _merge(self, g: types.LocalMap, m: types.LocalMap, cfg):
-        if self.datatype == "stereo":
-            end = congruence.transform_map_stereo(g, m.gauge.ref,
-                                                  info_dtype=cfg.info_dtype)
-            return join_mod.join_stereo(end, m, cfg)
-        end = congruence.transform_map_mono(g, m.gauge.ref, m.gauge.scap,
-                                            m.gauge.fix,
-                                            info_dtype=cfg.info_dtype)
-        return join_mod.join_mono(end, m, cfg)
+        merge = (plevel.merge_one_stereo if self.datatype == "stereo"
+                 else plevel.merge_one_mono)
+        return merge(g, m, cfg)
 
     def _regauge_compact(self, lm: types.LocalMap, caps_out, info_dtype):
         """Re-gauge to the final frame + compact, on the lanes the exact plan
@@ -195,13 +200,17 @@ class DeviceTreeSolver:
         return types.lanes(out, 0)
 
     # -- full tree -----------------------------------------------------------
-    def run(self, maps: list, metrics=None,
+    def run(self, maps: list, metrics=None, ckpt_dir: str | None = None,
+            resume: bool = False,
             time_levels: bool = False) -> types.LocalMap:
         """Solve the tree over `maps` (objects `types.host_fields` accepts)
         and return the root map on the solver's device.
 
-        time_levels: record each level's device wall into the metrics
-        records (`exec_wall`, seconds)."""
+        ckpt_dir: save every level boundary there (`stacked_level<L>.npz`);
+        resume: restart from its newest one, when its shape is the plan's
+        (the plan is rebuilt from `maps`, so they must be the same maps),
+        else warn and start over. time_levels: record each level's device
+        wall into the metrics records (`exec_wall`, seconds)."""
         t0 = time.perf_counter()
         stacked = compact_mod.compact_stack(maps, self.bucket, self.u_bucket)
         t1 = time.perf_counter()
@@ -228,22 +237,41 @@ class DeviceTreeSolver:
             U=grow(stacked.U, KUi), Uij=grow(stacked.Uij, KUi),
             W=grow(stacked.W, KWi), Wpf=grow(stacked.Wpf, KWi),
             V=grow(stacked.V, Ni))
+        start_level = 0
+        if resume and ckpt_dir:
+            got = checkpoint.latest_stacked(ckpt_dir)
+            if got is not None:
+                lvl, st = got
+                want = ((plans[lvl].count, plans[lvl].caps_in[0])
+                        if lvl < len(plans) else
+                        ((plans[-1].count + 1) // 2, plans[-1].caps_out[0]))
+                if st.pose_ids.shape == want:
+                    stacked, start_level = st, lvl
+                    log.info("resuming at level %d from %s", lvl, ckpt_dir)
+                else:
+                    log.warning("checkpoint shape %s mismatches plan %s; "
+                                "restarting", st.pose_ids.shape, want)
         t2 = time.perf_counter()
         x = types.to_torch(stacked, self.device)
         t3 = time.perf_counter()
         timer = _LevelTimer(self.device)
         res_per_level = {}
-        for li, lp in enumerate(plans):
+        for li, lp in enumerate(plans[start_level:], start=start_level):
             if time_levels:
                 timer.mark()
             x, res = self._level(x, lp)
             res_per_level[li + 1] = res
+            if ckpt_dir:
+                checkpoint.save_stacked(ckpt_dir, li + 1, x)
             self.join_count += lp.count // 2
             if metrics is not None:
                 metrics.record(li + 1, (lp.count + 1) // 2, lp.count // 2,
                                M=lp.caps_out[0], N=lp.caps_out[1],
                                join_m=lp.join_m,
                                wall=round(time.perf_counter() - t0, 4))
+            if self.progress:
+                log.info("Level %d dispatched (%d maps)", li + 1,
+                         (lp.count + 1) // 2)
         if time_levels:
             timer.mark()
         y = self._final(x, tp.root_caps, tp.root_regauge)
@@ -256,7 +284,7 @@ class DeviceTreeSolver:
         if metrics is not None:
             by_level = {r["level"]: r for r in metrics.records}
             walls = timer.walls() if time_levels else []
-            for lv, r in self.last_residuals.items():
+            for k, (lv, r) in enumerate(self.last_residuals.items()):
                 if lv not in by_level:
                     continue
                 if r.size:
@@ -264,7 +292,7 @@ class DeviceTreeSolver:
                     with np.errstate(invalid="ignore"):
                         by_level[lv]["res_max"] = float(np.max(r))
                 if walls:
-                    by_level[lv]["exec_wall"] = walls[lv - 1]
+                    by_level[lv]["exec_wall"] = walls[k]
         self._last_timing = dict(compact=t1 - t0, plan=t2 - t1,
                                  upload=t3 - t2, levels=t4 - t3,
                                  get=time.perf_counter() - t4)

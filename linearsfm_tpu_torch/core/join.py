@@ -5,6 +5,15 @@ Counterpart of `linearsfm_tpu/core/join.py` (`JoinConfig`,
 re-expressed in `cur`'s gauge, stack the two information forms and solve
 once: ``x* = (I_end + I_cur)^{-1} (I_end x_end + I_cur x_cur)``. Every lane
 of the lane-stacked inputs is one independent pair.
+
+Two solves, as in the reference: method "refine" (stereo, and mono with
+pin "sign") is `schur.solve_full_mixed`, the f32 Schur factor
+preconditioning an f64 PCG on the full system; every other combination
+("direct", and mono "refine" with pin "zero") forms the reduced system in
+the information dtype (`schur.inv3x3_wy`, `schur.assemble_schur`) and
+solves it with `solve.solve_reduced` — a plain Cholesky, or for "refine"
+an f32 factor with refinement sweeps — then back-substitutes the features.
+Both assemble grouped or dense as `cfg.max_obs` / `cfg.dense_schur` say.
 """
 
 from __future__ import annotations
@@ -25,8 +34,19 @@ class JoinConfig(NamedTuple):
     refine_iters: int = 3
     # Mono scale pin. "sign": condition the solve on the pinned coordinate's
     # value (E -= S[:, fix] * sign), exact constrained fusion. "zero": drop
-    # the column as the reference C++ solver does (method="direct" only).
+    # the column as the reference C++ solver does, exact only when the
+    # pinned coordinate carries no information coupling.
     pin: str = "sign"
+    # Schur assembly (ops/schur.assemble_schur): max W entries per feature
+    # for the grouped assembly, and dense_schur to assemble dense whatever
+    # the size (the device tree: it keeps no per-level max_obs); the host
+    # executor passes False and its exact max_obs.
+    max_obs: int = 8
+    dense_schur: bool = True
+    # the reference's feature-sharded root joins over a device mesh: not
+    # ported (multiple GPUs); anything but the defaults raises
+    mesh: object | None = None
+    mesh_axis: str = "fs"
     # information-path dtype (None = inherit); the solved state keeps the
     # state dtype
     info_dtype: torch.dtype | None = None
@@ -63,9 +83,28 @@ def _match_features(end_ids, end_valid, cur_ids, cur_valid, n1, out_cap):
     return joint, hit
 
 
+def _check_config(cfg: JoinConfig):
+    if cfg.mesh is not None or cfg.mesh_axis != "fs":
+        raise NotImplementedError(
+            "JoinConfig.mesh/mesh_axis: the feature-sharded join over a "
+            "device mesh is not ported (multiple GPUs, ROADMAP queue 1 item "
+            "13)")
+
+
+def _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo: int, cfg: JoinConfig):
+    """(Vinv, S, E): the feature-block inverses and the reduced camera
+    system in the information dtype, from one K2 launch (Vinv and
+    Y = W Vinv[wf]) and `schur.assemble_schur`."""
+    Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
+    S, E = schur.assemble_schur(U, Uij, W, Wpf, Yb, eP, eF, Mo, cfg.max_obs,
+                                force_dense=cfg.dense_schur)
+    return Vinv, S, E
+
+
 def join_stereo(end: types.LocalMap, cur: types.LocalMap,
                 cfg: JoinConfig = JoinConfig()):
     """Fuse the lanes of two stacked stereo maps sharing the same gauge."""
+    _check_config(cfg)
     P = end.poses.shape[0]
     M1, N1, N2 = end.M, end.N, cur.N
     Mo, No = M1 + cur.M, N1 + N2
@@ -111,14 +150,15 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
     fixed = ~pose_valid.repeat_interleave(6, dim=1)
     if cfg.method == "refine":
         xp, xf, res = schur.solve_full_mixed(
-            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, iters=cfg.refine_iters,
+            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
+            force_dense=cfg.dense_schur, iters=cfg.refine_iters,
             escalate_iters=cfg.escalate_iters, escalate_tol=cfg.escalate_tol,
             exit_tol=cfg.exit_tol)
     elif cfg.method == "direct":
-        Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
-        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, Mo)
-        S, E = solve.mask_gauge(S, E, fixed)
-        xp = solve.cholesky_solve(S, E).reshape(P, Mo, 6)
+        Vinv, S, E = _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo, cfg)
+        xp = solve.solve_reduced(S, E, fixed_mask=fixed, method=cfg.method,
+                                 refine_iters=cfg.refine_iters
+                                 ).reshape(P, Mo, 6)
         xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
         res = torch.full((P,), torch.nan, dtype=xp.dtype, device=dev)
     else:
@@ -146,6 +186,7 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     slots (id -1, zero information, gauge-masked); every block touching the
     zero-information reference pose is zeroed.
     """
+    _check_config(cfg)
     P = end.poses.shape[0]
     M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N
     Mo, No = M1 + M2, N1 + N2
@@ -234,16 +275,19 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
 
     if cfg.method == "refine" and cfg.pin == "sign":
         xp, xf, res = schur.solve_full_mixed(
-            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, iters=cfg.refine_iters,
+            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
+            force_dense=cfg.dense_schur, iters=cfg.refine_iters,
             fixc=fixc, sign=sign, escalate_iters=cfg.escalate_iters,
             escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
-    elif cfg.method == "direct" and cfg.pin in ("sign", "zero"):
-        Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
-        S, E = schur._assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, Mo)
+    elif cfg.method in ("direct", "refine") and cfg.pin in ("sign", "zero"):
+        # direct, or refine with pin "zero" (the reduced system's f32
+        # factor with refinement sweeps, as the reference)
+        Vinv, S, E = _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo, cfg)
         if cfg.pin == "sign":
             E = E - S[torch.arange(P, device=dev), :, fixc] * sign[:, None]
-        S, E = solve.mask_gauge(S, E, fixed)
-        xp = solve.cholesky_solve(S, E).reshape(P, Mo, 6)
+        xp = solve.solve_reduced(S, E, fixed_mask=fixed, method=cfg.method,
+                                 refine_iters=cfg.refine_iters
+                                 ).reshape(P, Mo, 6)
         if cfg.pin == "sign":
             # exact constrained fusion: back-substitute with the pinned
             # coordinate at its value

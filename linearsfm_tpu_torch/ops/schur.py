@@ -1,12 +1,14 @@
-"""Information-form fusion solve: dense feature-Schur complement.
+"""Information-form fusion solve: the feature-Schur complement.
 
-Counterpart of `linearsfm_tpu/ops/schur.py`, the subset the device tree
-runs: the feature-block inverses fused with Y = W Vinv[wf] (`inv3x3_wy`,
-kernel K2), the dense assembly (`_assemble_schur_dense`, feature-chunked
-above a byte budget), the mixed-precision solve `solve_full_mixed` (f32
-Schur Cholesky preconditioning an f64 PCG on the full information system),
-and the feature back-substitution. The grouped (per-feature) assembly of the host
-executor is not ported.
+Counterpart of `linearsfm_tpu/ops/schur.py`: the feature-block inverses
+fused with Y = W Vinv[wf] (`inv3x3_wy`, kernel K2), the reduced camera
+system `assemble_schur` — grouped per feature (`group_by_feature`) below
+`_DENSE_SCHUR_DIM` unless dense is forced, else the dense assembly
+(`_assemble_schur_dense`, kernel K1, feature-chunked above a byte budget) —
+the mixed-precision solve `solve_full_mixed` (f32 Schur Cholesky
+preconditioning an f64 PCG on the full information system), and the
+feature back-substitution. The device tree always assembles dense; the host
+executor's joins choose by size, as the reference does.
 
 Every operand carries the leading lane dimension P: one call solves every
 pair of a tree level. Block lists are zero-padded; padding contributes
@@ -20,7 +22,17 @@ import os
 import torch
 
 from . import kernels, solve
-from .segment import lane_where, seg_sum, take
+from .segment import lane_ids, lane_where, seg_sum, take
+
+# From this scalar dimension of the reduced system up, `assemble_schur`
+# assembles dense (the reference's threshold).
+_DENSE_SCHUR_DIM = 1024
+
+# Feature-chunking budget of the grouped assembly: the pairwise products of
+# one chunk, [P, chunk, O, O, 6, 6], hold at most this many 6x6 blocks over
+# all lanes (288 MB in float64). The reference counts 2**16 blocks per lane
+# (a 6x6 block fills a whole TPU tile there); here a block is 36 values.
+_SCHUR_CHUNK_BLOCKS = 1 << 20
 
 
 def dense_w_bytes() -> int:
@@ -166,7 +178,98 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
     return S, E
 
 
+def group_by_feature(Wpf, N: int, max_obs: int, entry_valid=None):
+    """Static-shape grouping of each lane's W entries by feature.
+
+    Returns (entry [P, N, max_obs], valid [P, N, max_obs], overflowed [P]):
+    entry selects the W entries of each feature (in list order, padded with
+    0), valid marks the real ones. `entry_valid` [P, KW] masks padding
+    entries (they would otherwise crowd the bucket of feature 0). A valid
+    entry beyond `max_obs` for its feature sets its lane's `overflowed`, and
+    `assemble_schur` then poisons that lane with NaN: callers size max_obs
+    from the lists (the host executor's `_max_obs_per_feature` is exact),
+    and an undersized bound shows as NaN, never as a quietly wrong sum.
+    """
+    P, KW = Wpf.shape[:2]
+    dev = Wpf.device
+    f = Wpf[..., 1]
+    if entry_valid is not None:
+        f = torch.where(entry_valid, f, N)     # padding to a dummy bucket
+    # rank within a feature = position in the stable sort - first position
+    fs, order = torch.sort(f, dim=1, stable=True)
+    pos = torch.arange(KW, device=dev).expand(P, KW)
+    rank = pos - torch.searchsorted(fs, fs)
+    real = (fs >= 0) & (fs < N)
+    ok = real & (rank < max_obs)
+    overflowed = (real & (rank >= max_obs)).any(dim=1)
+    # the rest go to slot (N, 0), sliced off
+    slot = (torch.where(ok, fs, N) * max_obs + torch.where(ok, rank, 0)
+            + lane_ids(P, dev) * ((N + 1) * max_obs))
+    entry = torch.zeros(P * (N + 1) * max_obs, dtype=order.dtype, device=dev)
+    entry.scatter_(0, slot.reshape(-1), torch.where(ok, order, 0).reshape(-1))
+    valid = torch.zeros(P * (N + 1) * max_obs, dtype=torch.bool, device=dev)
+    valid.scatter_(0, slot.reshape(-1), ok.reshape(-1))
+    shape = (P, N + 1, max_obs)
+    return (entry.view(shape)[:, :N], valid.view(shape)[:, :N], overflowed)
+
+
+def assemble_schur(U, Uij, W, Wpf, Yb, eP, eF, M: int, max_obs: int,
+                   force_dense: bool = False):
+    """Reduced camera system of every lane: S [P, 6M, 6M], E [P, 6M].
+
+    S = scatter(U) - sum_f W_f Vinv_f W_f^T, E = eP - (W Vinv) eF, from the
+    blocks Yb = W Vinv[wf] of the W list (`inv3x3_wy`). Below
+    `_DENSE_SCHUR_DIM` (and unless `force_dense`) S is summed per feature
+    over the pairs of its observations, grouped with a static bound
+    `max_obs` (the reference's per-feature double loop,
+    LinearSFMImp.cpp:2244-2332); above it, or forced (the device tree, which
+    keeps no per-level max_obs), the dense assembly runs.
+    """
+    if force_dense or 6 * M >= _DENSE_SCHUR_DIM:
+        return _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M)
+    P, N = eF.shape[0], eF.shape[1]
+    dev = U.device
+    ui, uj = Uij[..., 0], Uij[..., 1]
+    wp, wf = Wpf[..., 0], Wpf[..., 1]
+
+    # S as [P, M*M] 6x6 blocks (row-block i, column-block j at i*M + j)
+    inside = (ui >= 0) & (ui < M) & (uj >= 0) & (uj < M)
+    S = seg_sum(U, torch.where(inside, ui * M + uj, -1), M * M)
+    S += seg_sum(torch.where((ui != uj)[..., None, None], U.transpose(-1, -2),
+                             U.new_zeros(())),
+                 torch.where(inside, uj * M + ui, -1), M * M)
+
+    # entries with an exactly-zero block (padding, dropped couplings) add
+    # nothing; leaving them out keeps them from crowding feature buckets
+    entry, valid, overflowed = group_by_feature(
+        Wpf, N, max_obs, entry_valid=(W != 0).any(dim=(-1, -2)))
+    # an undersized max_obs would drop Schur terms: poison the lane instead
+    poison = torch.where(overflowed, torch.nan, 1.0).to(U.dtype)
+    scale = valid.to(U.dtype) * poison[:, None, None]            # [P, N, O]
+    flat = entry.reshape(P, -1)
+    Wg = take(W, flat).view(P, N, max_obs, 6, 3) * scale[..., None, None]
+    Yg = take(Yb, flat).view(P, N, max_obs, 6, 3) * scale[..., None, None]
+    pg = torch.clamp(take(wp, flat).view(P, N, max_obs), 0, M - 1)
+
+    # pairwise products Y_o W_q^T of each feature's observations o, q at
+    # block (p_o, p_q), accumulated in feature chunks: the [P, N, O, O, 6, 6]
+    # tensor is too large to hold whole at the upper levels
+    S = S.reshape(P * M * M, 6, 6)
+    base = lane_ids(P, dev)[:, :, None, None] * (M * M)
+    chunk = max(1, min(N, _SCHUR_CHUNK_BLOCKS // max(1, P * max_obs ** 2)))
+    for lo in range(0, N, chunk):
+        Yc, Wc, pc = Yg[:, lo:lo + chunk], Wg[:, lo:lo + chunk], pg[:, lo:lo + chunk]
+        C = Yc[:, :, :, None] @ Wc[:, :, None].transpose(-1, -2)
+        key = base + pc[..., :, None] * M + pc[..., None, :]
+        S.index_add_(0, key.reshape(-1), C.reshape(-1, 6, 6), alpha=-1)
+    S = S.view(P, M, M, 6, 6).permute(0, 1, 3, 2, 4).reshape(P, 6 * M, 6 * M)
+
+    E = eP - seg_sum(_bmv(Yb, take(eF, wf)), wp, M)
+    return S, E.reshape(P, 6 * M)
+
+
 def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
+                     max_obs: int = 1, force_dense: bool = True,
                      iters: int = 3, fixc=None, sign=None,
                      escalate_iters: int = 0, escalate_tol: float = 1e-8,
                      exit_tol: float = 0.0):
@@ -183,6 +286,8 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
 
     Args (P lanes): U..eF the block lists and information vectors in the
       accumulation dtype; fixed_mask bool [P, 6M] (True = gauge-fixed);
+      max_obs, force_dense: how the f32 Schur matrix is assembled
+      (`assemble_schur`; dense by default, as the device tree runs it);
       fixc/sign [P]: mono scale pin (flat coordinate and its +-1 value).
       iters: PCG sweeps (a cap when exit_tol > 0). exit_tol > 0 stops each
       lane as soon as its squared residual is <= (exit_tol ||e||)^2; a lane
@@ -204,8 +309,8 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     U32, W32, V32 = U.to(f32), W.to(f32), V.to(f32)
     # one K2 launch: Y32 = W Vinv32[wf] is the assembly's Yb and the PCG's Y
     Vinv32, Y32 = inv3x3_wy(V32, W32, Wpf)
-    S32, E32 = _assemble_schur_dense(U32, Uij, W32, Wpf, Y32, eP.to(f32),
-                                     eF.to(f32), M)
+    S32, E32 = assemble_schur(U32, Uij, W32, Wpf, Y32, eP.to(f32),
+                              eF.to(f32), M, max_obs, force_dense=force_dense)
     if fixc is not None:
         E32 = E32 - S32[lane, :, fixc] * sign.to(f32)[:, None]
     S32, E32 = solve.mask_gauge(S32, E32, fixed_mask)

@@ -191,6 +191,24 @@ def host_fields(obj) -> LocalMap:
         gauge=gauge)
 
 
+def make_local_map(pose_ids, poses, feat_ids, feats, U, Uij, W, Wpf, V,
+                   gauge: Gauge, dtype=np.float64) -> LocalMap:
+    """Host-form LocalMap from exact-size (unpadded) arrays: ids and block
+    coordinates int32, values in `dtype`, the valid counts the list
+    lengths (the reference's `make_local_map`)."""
+    f = lambda x: np.asarray(x, dtype)  # noqa: E731
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    pose_ids, feat_ids = i32(pose_ids), i32(feat_ids)
+    Uij, Wpf = i32(Uij).reshape(-1, 2), i32(Wpf).reshape(-1, 2)
+    return LocalMap(
+        pose_ids=pose_ids, poses=f(poses).reshape(-1, 6),
+        feat_ids=feat_ids, feats=f(feats).reshape(-1, 3),
+        U=f(U).reshape(-1, 6, 6), Uij=Uij, W=f(W).reshape(-1, 6, 3), Wpf=Wpf,
+        V=f(V).reshape(-1, 3, 3),
+        n_poses=i32(len(pose_ids)), n_feats=i32(len(feat_ids)),
+        n_U=i32(Uij.shape[0]), n_W=i32(Wpf.shape[0]), gauge=gauge)
+
+
 def to_torch(obj, device) -> LocalMap:
     """Working-form LocalMap on `device`: integer fields become int64, float
     fields keep their dtype (float64 for every map the generator or the

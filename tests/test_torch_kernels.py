@@ -606,3 +606,24 @@ def test_inv3x3_wy_kernel_matches_plain_on_cuda(case, dtype):
     if K > 1:
         with pytest.raises(ValueError, match="contiguous"):
             kernels.inv3x3_wy(V, W[:, ::2], Wpf[:, ::2])
+
+
+@pytest.mark.cuda
+def test_direct_solve_float64_level_batch_on_cuda():
+    """The direct executor's level 10 at 2,048 maps: two 6,144-wide float64
+    systems solved as one batch. `torch.cholesky_solve` raised "CUDA error:
+    invalid argument" on exactly this batch on the H100 (torch 2.11.0+cu128);
+    `solve.cholesky_solve` solves it with two triangular solves, to the
+    residual of a float64 Cholesky."""
+    _needs_card()
+    from linearsfm_tpu_torch.ops import solve
+    g = torch.Generator(device="cuda").manual_seed(12)
+    d = 6144
+    A = torch.randn((2, d, d), generator=g, device="cuda",
+                    dtype=torch.float64) / d ** 0.5
+    S = A @ A.transpose(-1, -2) + torch.eye(d, device="cuda",
+                                            dtype=torch.float64)
+    E = torch.randn((2, d), generator=g, device="cuda", dtype=torch.float64)
+    x = solve.cholesky_solve(S, E)
+    r = (S @ x[..., None])[..., 0] - E
+    assert float(r.abs().max() / E.abs().max()) < 1e-10

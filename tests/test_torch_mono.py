@@ -235,13 +235,25 @@ def test_join_mono_matches_reference(method, pin):
         assert np.isnan(float(res_t[0])) and np.isnan(float(res_j))
 
 
-def test_join_mono_refine_needs_sign_pin():
-    """The reference's refine path with pin="zero" is its host executor's
-    dense refinement, which the port does not have: it raises."""
+@pytest.mark.parametrize("dense", [True, False])
+def test_join_mono_refine_needs_sign_pin(dense):
+    """Refine without the sign pin: the PCG needs pin="sign", so refine
+    with pin="zero" solves the reduced system with an f32 factor and
+    refinement sweeps (`solve.solve_reduced`), as the reference does; it no
+    longer raises. Dense and grouped assembly: states within 1e-9 of the
+    reference, no residual (NaN), the pinned coordinate at sign."""
     a, b = _join_pair()
-    with pytest.raises(ValueError, match="no solve"):
-        tjoin.join_mono(one_lane_map(a), one_lane_map(b),
-                        tjoin.JoinConfig(method="refine", pin="zero"))
+    kw = dict(method="refine", pin="zero", refine_iters=4, with_res=True,
+              max_obs=8, dense_schur=dense)
+    want, res_j = jjoin.join_mono(a, b, jjoin.JoinConfig(**kw))
+    got, res_t = tjoin.join_mono(one_lane_map(a), one_lane_map(b),
+                                 tjoin.JoinConfig(**kw))
+    g = types.to_numpy(types.lanes(got, 0))
+    np.testing.assert_array_equal(g.pose_ids, np.asarray(want.pose_ids))
+    np.testing.assert_allclose(g.poses, np.asarray(want.poses), atol=1e-9)
+    np.testing.assert_allclose(g.feats, np.asarray(want.feats), atol=1e-9)
+    assert g.poses[1, 2] == 1.0
+    assert np.isnan(float(res_t[0])) and np.isnan(float(res_j))
 
 
 # ---------------------------------------------------------------------------
