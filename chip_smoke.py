@@ -66,10 +66,26 @@ Phases, each printing its lines; any failure exits non-zero:
    CLI's solve is then timed warm. Then checkpoint/resume of both
    executors on the 13-map stereo and 11-map mono trees: resumed from the
    newest checkpoint and from level 2's, poses within 1e-9 of the full run.
-   Each run prints its wall, reader, host phases and kernel launches.
+   Each run prints its wall, reader, host phases and kernel launches. The
+   CLI's mono solve runs twice (the direct mono solve sums in a fixed
+   order): the two pose files must be identical;
+9. the mesh paths on this card, every mesh four shards of cuda:0: (a) the
+   stereo main path's set through `DeviceTreeSolver(..., mesh=Mesh(
+   ("cuda:0",) * 4))`: its level modes (dp levels must be there and the
+   root tp), a warm run with every K1 and K2 call of the tp level held
+   against the plain version in situ (`_K1InSitu`, `_K2InSitu`), a timed
+   run (counts from 0) with the main path's checks and a pose max |diff|
+   against phase 6's run of at most 1e-8; (b) the same for mono (1e-6
+   against phase 7's); (c) multi-host, stereo, direct: 4 hosts simulated
+   in process (`parallel/multihost`, the gather stubbed) and (d) two real
+   processes of `linearsfm_tpu_torch.tools.multihost_worker` on cuda:0
+   over gloo (a free port, a 600 s timeout): ATE within 1e-6 of the
+   oracle's and poses within 1e-8 of the single-process direct solve
+   (and (d) of (c)); (e) the host executor over a pairs and an fs mesh on
+   a 64-map stereo tree, within 1e-9 of it without meshes.
 
 The kernel launch counts are set to 0 just before each main path's timed
-run and read just after it; the warm run checks that K2 ran at the shapes
+run (phases 6, 7, 9a, 9b, and 9c's simulated run) and read just after it; the warm run checks that K2 ran at the shapes
 phase 4 timed. The CLI runs report their own counts (pipeline log); the
 host run's are set to 0 before `cli.main` and read after it. Every path
 must launch K1 and K2. The line before the last is the kernel record (per kernel:
@@ -639,8 +655,9 @@ def make_dataset(datatype):
 
 def phase_main_path(datatype, maps, poses_gt, shapes):
     """One warm and one timed run of the 2,048-map covis set; returns the
-    kernel launch counts of the timed run. The warm run's fused K2 launches
-    must have the shapes phase 4 timed (`shapes`) at level 1 and the root."""
+    kernel launch counts of the timed run and its poses by id. The warm
+    run's fused K2 launches must have the shapes phase 4 timed (`shapes`)
+    at level 1 and the root."""
     import numpy as np
     import torch
     from linearsfm_tpu_torch import types
@@ -714,7 +731,7 @@ def phase_main_path(datatype, maps, poses_gt, shapes):
     for k, c in launched.items():
         if c <= 0:
             raise AssertionError(f"{tag}: kernel {k} was never launched")
-    return launched
+    return launched, _poses_by_id(out)
 
 
 def _write_dataset(maps, datatype, out_dir):
@@ -767,11 +784,12 @@ def _run_log(text):
                 write_s=float(w.group(1)), peak_gib=float(p.group(1)))
 
 
-def _cli_subprocess(tag, data, datatype, n, poses_gt, out_dir):
+def _cli_subprocess(tag, data, datatype, n, poses_gt, out_dir, run=0):
     """`python3 -m linearsfm_tpu_torch.cli` with the default flags (device
-    executor, --method direct, on the GPU) and --check."""
+    executor, --method direct, on the GPU) and --check; its pose file is
+    pose_cli_<datatype><run>.txt in out_dir."""
     typ = "Stereo" if datatype == "stereo" else "Monocular"
-    pose = os.path.join(out_dir, f"pose_cli_{datatype}.txt")
+    pose = os.path.join(out_dir, f"pose_cli_{datatype}{run}.txt")
     cmd = [sys.executable, "-m", "linearsfm_tpu_torch.cli", "-path", data,
            "-num", str(n), "-type", typ, "-p", pose,
            "-f", os.path.join(out_dir, f"feat_cli_{datatype}.txt"),
@@ -965,6 +983,18 @@ def phase_entry_points(datasets):
             cli_poses[d], got = _cli_subprocess(
                 f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
             launched[f"cli {d}"] = got["launches"]
+        # the direct mono solve sums in a fixed order (core/pipeline): a
+        # second process writes the same pose file, byte for byte
+        _cli_subprocess("entry cli mono (again)", data["mono"], "mono", n,
+                        datasets["mono"][1], tmp, run=1)
+        same = [open(os.path.join(tmp, f"pose_cli_mono{r}.txt"), "rb").read()
+                for r in (0, 1)]
+        print(f"entry cli mono: two processes wrote "
+              f"{'identical' if same[0] == same[1] else 'DIFFERENT'} pose "
+              f"files ({len(same[0])} bytes)", flush=True)
+        if same[0] != same[1]:
+            raise AssertionError("entry cli mono: pose files differ between "
+                                 "two runs")
         for d in ("stereo", "mono"):
             _warm_direct(d, datasets[d][0], launched[f"cli {d}"][
                 "blockcoo_to_dense"])
@@ -1036,6 +1066,288 @@ def phase_entry_points(datasets):
     return launched
 
 
+class _K2InSitu:
+    """While active, every fused K2 call (`schur.inv3x3_wy`) is held against
+    its plain version on its own inputs: both outputs `torch.equal` (NaN
+    where the plain version has NaN). Counts the calls."""
+
+    def __enter__(self):
+        from linearsfm_tpu_torch.ops import kernels, schur
+        self.calls, self._saved = 0, schur.inv3x3_wy
+        fused = self._saved
+
+        def held(V, W, Wpf):
+            import torch
+            got = fused(V, W, Wpf)
+            ref = kernels.inv3x3_wy_ref(V.contiguous(), W.contiguous(),
+                                        Wpf.contiguous())
+            torch.cuda.synchronize()
+            for what, a, b in zip(("Vinv", "Y"), got, ref):
+                if a.shape != b.shape or not _exact(a, b):
+                    raise AssertionError(f"K2 in situ {list(V.shape)} "
+                                         f"{list(W.shape)}: {what} kernel != "
+                                         f"plain")
+            self.calls += 1
+            return got
+        schur.inv3x3_wy = held
+        return self
+
+    def __exit__(self, *exc):
+        from linearsfm_tpu_torch.ops import schur
+        schur.inv3x3_wy = self._saved
+        return False
+
+
+def _ate_of(poses, poses_gt):
+    import numpy as np
+    err = [float(np.linalg.norm(p[:3] - poses_gt[i][:3]))
+           for i, p in poses.items()]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
+def _max_diff(tag, a, b):
+    import numpy as np
+    if set(a) != set(b):
+        raise AssertionError(f"{tag}: pose ids differ")
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
+    """The main path's set through `DeviceTreeSolver(datatype,
+    method="refine", mesh=mesh)`: the level modes, a warm run with every K1
+    and K2 call of the tp level held in situ, then a timed run (counts from
+    0) against the oracle's ATE and the single-device run's poses
+    (`single`). Returns the timed run's launches."""
+    import torch
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+
+    n, tag = 2048, f"mesh {datatype}"
+    oracle = ORACLE_ATE_2048[datatype]
+    solver = DeviceTreeSolver(datatype, method="refine", mesh=mesh,
+                              device="cuda")
+    modes = [solver._level_mode(lp, solver._level_cfg(lp)) for lp in levels]
+    print(f"{tag}: {mesh}, level modes {modes}", flush=True)
+    if "dp" not in modes or modes[-1] != "tp":
+        raise AssertionError(f"{tag}: want dp levels and a tp root, got "
+                             f"{modes}")
+    tp_level = solver._level_tp
+    held = {}
+
+    def tp_in_situ(*a):
+        with _K1InSitu() as k1, _K2InSitu() as k2:
+            out = tp_level(*a)
+        held.update(k1=k1, k2=k2)
+        return out
+    solver._level_tp = tp_in_situ
+    t0 = time.perf_counter()
+    try:
+        solver.run(maps)
+    finally:
+        del solver._level_tp
+    print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s", flush=True)
+    held["k1"].report(f"{tag} tp level")
+    print(f"{tag} tp level: every fused K2 call held against the plain "
+          f"version in situ (torch.equal, both outputs): {held['k2'].calls} "
+          f"calls ok", flush=True)
+    if held["k2"].calls != mesh.size:
+        raise AssertionError(f"{tag}: {held['k2'].calls} K2 calls at the tp "
+                             f"level, want one per shard")
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    metrics = LevelMetrics()
+    t0 = time.perf_counter()
+    out = solver.run(maps, metrics=metrics, time_levels=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    poses = _poses_by_id(out)
+    ate = _ate_of(poses, poses_gt)
+    diff = _max_diff(tag, poses, single)
+    res_max = max(r.get("res_max", float("nan")) for r in metrics.records)
+    print(f"{tag}: timed run {wall:.4f} s = {(n - 1) / wall:.2f} "
+          f"maps_joined/s, peak device memory {peak:.2f} GiB, host phases "
+          f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }",
+          flush=True)
+    for r, mode in zip(metrics.records, modes):
+        print(f"{tag}: level {r['level']:2d} {mode:4s} joins "
+              f"{r['n_joins']:4d} join_m {r['join_m']:5d} exec_wall "
+              f"{r['exec_wall'] * 1e3:9.3f} ms res_max "
+              f"{r.get('res_max', float('nan')):.3e}", flush=True)
+    limit = 1e-8 if datatype == "stereo" else 1e-6
+    print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
+          f"{ate - oracle:+.3e}), res_max {res_max:.3e}, pose max |diff| vs "
+          f"the single-device run {diff:.3e} (limit {limit:g}), kernel "
+          f"launches {launched}", flush=True)
+    if not abs(ate - oracle) <= 1e-6:
+        raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
+    if not res_max <= 1e-10:
+        raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
+    if not diff <= limit:
+        raise AssertionError(f"{tag}: poses differ from the single-device "
+                             f"run by {diff}")
+    for k, c in launched.items():
+        if c <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    return launched
+
+
+def _multihost(maps, poses_gt):
+    """Multi-host on the stereo set, direct: 4 hosts simulated in this
+    process (the gather stubbed with every host's contribution), then two
+    real processes of the port's worker on this card over gloo; both
+    against the single-process direct device solve. Returns the simulated
+    run's launches."""
+    import gc
+    import socket
+    import tempfile
+    import numpy as np
+    import torch
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.parallel import multihost as MH
+
+    oracle = ORACLE_ATE_2048["stereo"]
+    kw = dict(method="direct", device="cuda")
+    t0 = time.perf_counter()
+    single = _poses_by_id(DeviceTreeSolver("stereo", **kw).run(maps))
+    print(f"multihost: single-process direct solve {time.perf_counter() - t0:.3f} "
+          f"s, ATE {_ate_of(single, poses_gt):.9f}", flush=True)
+
+    def check(tag, poses):
+        ate, diff = _ate_of(poses, poses_gt), _max_diff(tag, poses, single)
+        print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
+              f"{ate - oracle:+.3e}), pose max |diff| vs the single-process "
+              f"solve {diff:.3e} (limit 1e-8)", flush=True)
+        if not abs(ate - oracle) <= 1e-6 or not diff <= 1e-8:
+            raise AssertionError(f"{tag}: ATE {ate}, pose diff {diff}")
+
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    stacks = [MH.local_stacked(maps, "stereo", 4, h, kw) for h in range(4)]
+    t1 = time.perf_counter()
+    sim = _poses_by_id(MH.run_multihost(maps, "stereo", n_hosts=4, host_id=0,
+                                        gather=lambda _mine: stacks,
+                                        solver_kw=kw))
+    launched = dict(kernels.launches)
+    L, block, owners = MH.plan_chunks(len(maps), 4)
+    print(f"multihost simulated: 4 hosts, blocks of {block} maps, owners "
+          f"{owners}; local phases {t1 - t0:.3f} s, gather and top "
+          f"{time.perf_counter() - t1:.3f} s; kernel launches {launched}",
+          flush=True)
+    check("multihost simulated", sim)
+    for k, c in launched.items():
+        if c <= 0:
+            raise AssertionError(f"multihost: kernel {k} was never launched")
+
+    # the workers share the card: hand back this process's cached blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"multihost: this process keeps "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card while "
+          f"the workers run", flush=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        cmd = [sys.executable, "-m", "linearsfm_tpu_torch.tools.multihost_worker",
+               f"127.0.0.1:{port}", "2", "RANK", tmp, "--device", "cuda:0",
+               "--maps", "2048", "--seed", "7", "--noise", "0.005",
+               "--covis-radius", "6.0", "--covis-max", "6"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([str(r) if a == "RANK" else a for a in cmd],
+                                  cwd=HERE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"multihost rank {r}: exit "
+                                     f"{p.returncode}\n{outs[r][-3000:]}")
+        print(f"multihost two processes (gloo, both on cuda:0): exit 0 and "
+              f"0 in {wall:.3f} s", flush=True)
+        for r in range(2):
+            f = np.load(os.path.join(tmp, f"result_{r}.npz"))
+            got = {int(i): p for i, p in zip(f["ids"], f["poses"])}
+            check(f"multihost rank {r}", got)
+            d = _max_diff(f"multihost rank {r}", got, sim)
+            print(f"multihost rank {r}: pose max |diff| vs the simulated "
+                  f"4-host run {d:.3e} (limit 1e-8)", flush=True)
+            if not d <= 1e-8:
+                raise AssertionError(f"multihost rank {r}: {d} from the "
+                                     f"simulated run")
+    return launched
+
+
+def _host_mesh():
+    """The host executor with a pairs mesh and an fs root mesh (cuda:0 four
+    times each; root joins of at least 32 poses sharded) on a 64-map stereo
+    tree, against the same executor without meshes."""
+    from synth import generate as gen
+    from linearsfm_tpu_torch.core.tree import TreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.parallel import shard_solve
+    from linearsfm_tpu_torch.parallel.mesh import Mesh
+
+    maps, _, _ = gen.make_dataset(64, "stereo", noise=0.01, seed=5)
+    plain = _poses_by_id(TreeSolver("stereo", device="cuda").run(maps))
+    sharded, fn = [], shard_solve.sharded_schur_solve
+
+    def count(*a, **k):
+        sharded.append(a[7])
+        return fn(*a, **k)
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    shard_solve.sharded_schur_solve = count
+    t0 = time.perf_counter()
+    try:
+        got = _poses_by_id(TreeSolver(
+            "stereo", device="cuda", mesh=Mesh(("cuda:0",) * 4, "pairs"),
+            root_mesh=Mesh(("cuda:0",) * 4, "fs"), root_shard_min=32,
+        ).run(maps))
+    finally:
+        shard_solve.sharded_schur_solve = fn
+    diff = _max_diff("host mesh", got, plain)
+    print(f"host mesh: 64-map stereo tree, host executor over a 4-shard "
+          f"pairs mesh and fs root mesh in {time.perf_counter() - t0:.3f} s "
+          f"(feature-sharded root joins at M {sharded}), kernel launches "
+          f"{dict(kernels.launches)}; pose max |diff| vs no mesh "
+          f"{diff:.3e} (limit 1e-9)", flush=True)
+    if not sharded or not diff <= 1e-9:
+        raise AssertionError(f"host mesh: sharded joins {sharded}, diff "
+                             f"{diff}")
+
+
+def phase_mesh(datasets, single):
+    """Phase 9: the mesh paths on this card, a 4-shard mesh of cuda:0
+    (`single`: phase 6-7's poses by id). Returns the launches of each
+    path."""
+    from linearsfm_tpu_torch.parallel.mesh import Mesh
+    t_phase = time.perf_counter()
+    mesh = Mesh(("cuda:0",) * 4, "pairs")
+    launched = {}
+    for d in ("stereo", "mono"):
+        maps, gt, levels = datasets[d]
+        launched[f"mesh {d}"] = _mesh_main_path(d, maps, gt, levels, mesh,
+                                                single[d])
+    launched["multihost"] = _multihost(*datasets["stereo"][:2])
+    _host_mesh()
+    print(f"mesh: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1052,6 +1364,10 @@ def main() -> int:
     # full-f32 matmuls (the port refuses TF32 on its f32 Schur products)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phase 9's two worker processes share the card: this process caches at
+    # most half of it (the direct float64 root, its largest, needs about
+    # 16 GB with the in-situ checks)
+    torch.cuda.set_per_process_memory_fraction(0.5)
 
     sys.path.insert(0, HERE)
     from linearsfm_tpu_torch.ops import kernels
@@ -1066,9 +1382,11 @@ def main() -> int:
     k1_err, k1_times = phase_kernels()
     k2_err, k2_times = phase_k2(shapes)
     phase_small_trees()
-    paths = {d: phase_main_path(d, maps, gt, shapes)
-             for d, (maps, gt, _) in datasets.items()}
+    paths, single = {}, {}
+    for d, (maps, gt, _) in datasets.items():
+        paths[d], single[d] = phase_main_path(d, maps, gt, shapes)
     paths.update(phase_entry_points(datasets))
+    paths.update(phase_mesh(datasets, single))
 
     def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}

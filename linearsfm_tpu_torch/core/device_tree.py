@@ -1,7 +1,7 @@
 """Device-resident merge tree: each level is one batched pass over its pairs.
 
-Counterpart of `linearsfm_tpu/core/device_tree.py` (stereo and mono, one
-device).
+Counterpart of `linearsfm_tpu/core/device_tree.py` (stereo and mono, on
+one device or over a `parallel/mesh.Mesh`).
 The whole level — all pairwise joins, the every-2nd-map re-gauge to the
 final frame, the odd carry and the compaction — runs on lane-stacked
 [count, ...caps] tensors, so the maps never leave the device between levels.
@@ -11,8 +11,15 @@ each level boundary is also saved (`utils/checkpoint.save_stacked`, one
 device-to-host copy per level), and a resumed run restarts from the newest
 one whose shapes the plan confirms.
 
+Over a mesh each level takes one of the reference's modes (`_level_mode`):
+"dp" splits the pair lanes over the shards, "tp" shards the feature axis of
+the root-style single-pair solve, "rep" runs the plain level on the mesh's
+first device, where the level boundaries stay. A subtree of a larger tree
+(`parallel/multihost.py`) is planned at its global offset and without the
+final re-gauge.
+
 Not ported (TPU- or JAX-specific): the Pallas vmap-width gate and
-the <=1,024-lane split, AOT warm-up and the mesh modes.
+the <=1,024-lane split, and AOT warm-up.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from .. import types
 from ..ops import congruence
 from ..parallel import level as plevel
+from ..parallel.mesh import canonical
 from ..utils import checkpoint
 from . import compact as compact_mod
 from . import dcompact
@@ -91,6 +99,17 @@ class DeviceTreeSolver:
     runs levels up to that size with f32 information (off by default);
     `direct_min_m` solves levels from that size with a plain f64 Cholesky.
     progress: log each level as it is dispatched.
+
+    mesh (a `parallel/mesh.Mesh` whose first device is `device`, or None):
+    each level picks its mode (`_level_mode`): "dp" for a level of at least
+    one pair per shard whose re-gauge flags repeat with the shard's lane
+    count (the pair lanes are padded with clones of pair 0 to a multiple of
+    the mesh, each shard's lanes run the level body on its device, the
+    clones are dropped and the odd carry is handled outside); "tp" for a
+    count-2 refine level whose join has at least `root_shard_min` poses
+    (`shard_solve.sharded_full_mixed`); "rep" for the rest.
+    plan_offset, final_regauge: a subtree's global map offset and whether
+    its root is the whole tree's (`core/plan.plan_tree_exact`).
     """
 
     def __init__(self, datatype: str = "stereo", method: str = "refine",
@@ -99,12 +118,22 @@ class DeviceTreeSolver:
                  direct_min_m: int = 0,
                  top_min_m: int = 256, top_iters: int = 16,
                  escalate_tol: float = 1e-8, pcg_exit_tol: float = 1e-14,
-                 progress: bool = False, *, device):
+                 progress: bool = False, plan_offset: int = 0,
+                 final_regauge: bool = True, mesh=None,
+                 root_shard_min: int = 256, *, device):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
         self.datatype = datatype
         self.device = torch.device(device)
+        if mesh is not None and canonical(device) != mesh.devices[0]:
+            raise ValueError(f"DeviceTreeSolver: device {device} is not the "
+                             f"mesh's first device {mesh.devices[0]}")
+        self.mesh = mesh
+        self._nd = mesh.size if mesh is not None else 0
+        self.root_shard_min = root_shard_min
+        self.plan_offset = plan_offset
+        self.final_regauge = final_regauge
         self.method = method
         self.refine_iters = refine_iters
         self.bucket = bucket
@@ -154,13 +183,18 @@ class DeviceTreeSolver:
                                               info_dtype=info_dtype)
         return dcompact.compact_device(t, *caps_out)[0]
 
-    def _level(self, x: types.LocalMap, lp: plan_mod.LevelPlan):
-        """One tree level over `lp.count` stacked lanes. Returns (next level's
-        stacked maps in output order, residual per merged lane [count // 2 +
-        count % 2] with the carry last)."""
-        count, caps_out, flags = lp.count, lp.caps_out, lp.regauge
-        cfg = self._cfg(lp.join_m if lp.join_m is not None
-                        else 2 * lp.caps_in[0])
+    def _level_cfg(self, lp: plan_mod.LevelPlan) -> join_mod.JoinConfig:
+        # exact plans carry the level's true largest join; the bucketed
+        # 2 * caps_in[0] is only the count-based fallback
+        return self._cfg(lp.join_m if lp.join_m is not None
+                         else 2 * lp.caps_in[0])
+
+    def _body(self, x: types.LocalMap, count: int, caps_out, flags, cfg):
+        """One tree level's work over `count` stacked lanes; flags are the
+        re-gauge booleans of the (count + 1) // 2 output lanes. Returns
+        (next level's stacked maps in output order, residual per merged lane
+        [count // 2 + count % 2] with the carry last). Also a dp shard's
+        body, over its lanes and the shard-uniform flags."""
         npair, nxt = count // 2, (count + 1) // 2
         idx_rg = [i for i in range(nxt) if flags[i]]
         idx_nr = [i for i in range(nxt) if not flags[i]]
@@ -190,6 +224,107 @@ class DeviceTreeSolver:
         # res stays in merged order (pair i at slot i, carry last)
         return types.lanes(types.cat(parts), perm), res
 
+    def _dp_pattern(self, lp: plan_mod.LevelPlan):
+        """The shard-uniform re-gauge flags of a dp level's shard (one per
+        local pair), or None if the level cannot split over the pairs.
+
+        The pair lanes are padded with clones of pair 0 to local * nd (the
+        joins are lane-independent) and the odd carry stays outside, so any
+        count splits once the real pairs' flags repeat with period `local`;
+        the every-2nd-output pattern does whenever local is even, so both
+        ceil(npair / nd) and its even round-up are tried."""
+        if self._nd <= 1 or lp.regauge is None:
+            return None
+        nd, npair = self._nd, lp.count // 2
+        if npair < nd:
+            return None
+        flags = tuple(bool(f) for f in lp.regauge[:npair])
+        base = -(-npair // nd)
+        for local in (base, base + (base & 1)):
+            cand = (flags * ((local + npair - 1) // npair))[:local]
+            if all(flags[i] == cand[i % local] for i in range(npair)):
+                return cand
+        return None
+
+    def _level_mode(self, lp: plan_mod.LevelPlan, cfg) -> str:
+        """The level's mode: dp | tp | rep, or single without a mesh."""
+        if self._nd <= 1:
+            return "single"
+        if self._dp_pattern(lp) is not None:
+            return "dp"
+        if (lp.count == 2 and lp.regauge is not None
+                and (lp.join_m or 0) >= self.root_shard_min
+                and cfg.method == "refine"):
+            return "tp"
+        return "rep"
+
+    def _plan_modes(self, tp: plan_mod.TreePlan) -> list[str]:
+        return [self._level_mode(lp, self._level_cfg(lp)) for lp in tp.levels]
+
+    def _level(self, x: types.LocalMap, lp: plan_mod.LevelPlan):
+        """One tree level over `lp.count` stacked lanes on the solver's
+        device, in its mode; returns what `_body` returns."""
+        cfg = self._level_cfg(lp)
+        mode = self._level_mode(lp, cfg)
+        if mode == "dp":
+            return self._level_dp(x, lp, cfg)
+        if mode == "tp":
+            return self._level_tp(x, lp, cfg)
+        return self._body(x, lp.count, lp.caps_out, lp.regauge, cfg)
+
+    def _level_dp(self, x: types.LocalMap, lp: plan_mod.LevelPlan, cfg):
+        """The level's pairs split over the mesh: shard d runs the body on
+        lanes [2 local d, 2 local (d + 1)) of the clone-padded pair stack on
+        its device; the outputs come back to the first device in shard
+        order, the clones are dropped, and the odd carry is compacted (and
+        re-gauged if flagged) there."""
+        mesh, nd = self.mesh, self._nd
+        count, caps_out = lp.count, lp.caps_out
+        npair = count // 2
+        cand = self._dp_pattern(lp)
+        local = len(cand)
+        pad = local * nd - npair
+        xp = types.lanes(x, slice(0, 2 * npair))
+        if pad:
+            xp = types.cat([xp] + [types.lanes(x, slice(0, 2))] * pad)
+        outs, ress = [], []
+        for d, dev in enumerate(mesh.devices):
+            with mesh.on(d):
+                shard = types.map_fields(
+                    types.lanes(xp, slice(2 * local * d, 2 * local * (d + 1))),
+                    lambda a, dev=dev: a.to(dev))
+                out, res = self._body(shard, 2 * local, caps_out, cand, cfg)
+            outs.append(types.map_fields(out, lambda a: a.to(self.device)))
+            ress.append(res.to(self.device))
+            del shard, out, res
+        out, res = types.cat(outs), torch.cat(ress)
+        if pad:
+            out, res = types.lanes(out, slice(0, npair)), res[:npair]
+        if count % 2 == 1:
+            idt = cfg.info_dtype
+            carry = pad_to_device(types.lanes(x, slice(count - 1, count)),
+                                  *caps_out)
+            carry = dataclasses.replace(carry, U=carry.U.to(idt),
+                                        W=carry.W.to(idt), V=carry.V.to(idt))
+            c = (self._regauge_compact(carry, caps_out, idt)
+                 if lp.regauge[npair]
+                 else dcompact.compact_device(carry, *caps_out)[0])
+            out = types.cat([out, c])
+            res = torch.cat([res, res.new_zeros(1)])
+        return out, res
+
+    def _level_tp(self, x: types.LocalMap, lp: plan_mod.LevelPlan, cfg):
+        """The count-2 root-style level: its one join solved with the
+        feature axis sharded over the mesh (`JoinConfig.mesh`); the
+        transform and the compaction run on the first device."""
+        cfg = cfg._replace(mesh=self.mesh, mesh_axis=self.mesh.axis)
+        merged, res = self._merge(types.lanes(x, slice(0, 1)),
+                                  types.lanes(x, slice(1, 2)), cfg)
+        out = (self._regauge_compact(merged, lp.caps_out, cfg.info_dtype)
+               if lp.regauge[0]
+               else dcompact.compact_device(merged, *lp.caps_out)[0])
+        return out, res
+
     def _final(self, x: types.LocalMap, caps, need: bool) -> types.LocalMap:
         root = types.lanes(x, slice(0, 1))
         out = (self._regauge_compact(root, caps, torch.float64) if need
@@ -216,7 +351,9 @@ class DeviceTreeSolver:
         t1 = time.perf_counter()
         syms = plan_mod.sym_of_stacked(stacked)
         tp = plan_mod.plan_tree_exact(syms, self.datatype, self.bucket,
-                                      self.u_bucket)
+                                      self.u_bucket,
+                                      map_offset=self.plan_offset,
+                                      final_regauge=self.final_regauge)
         if not tp:
             return types.lanes(types.to_torch(stacked, self.device), 0)
         plans = tp.levels

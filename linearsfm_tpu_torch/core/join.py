@@ -14,6 +14,10 @@ the information dtype (`schur.inv3x3_wy`, `schur.assemble_schur`) and
 solves it with `solve.solve_reduced` — a plain Cholesky, or for "refine"
 an f32 factor with refinement sweeps — then back-substitutes the features.
 Both assemble grouped or dense as `cfg.max_obs` / `cfg.dense_schur` say.
+With `cfg.mesh` (one-lane joins: the root levels) they run with the
+feature axis sharded over the mesh, as the reference routes them:
+`shard_solve.sharded_full_mixed` for the PCG, `sharded_schur_solve` for
+the rest.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from .. import types
 from ..ops import schur, solve
 from ..ops.rotations import wrap_angle_diff, wrap_angle_pi
 from ..ops.segment import put1, seg_sum, take1
+from ..parallel import shard_solve
 
 
 class JoinConfig(NamedTuple):
@@ -43,8 +48,9 @@ class JoinConfig(NamedTuple):
     # executor passes False and its exact max_obs.
     max_obs: int = 8
     dense_schur: bool = True
-    # the reference's feature-sharded root joins over a device mesh: not
-    # ported (multiple GPUs); anything but the defaults raises
+    # feature-sharded solve over a `parallel/mesh.Mesh` (single-pair joins:
+    # the root levels); None = the single-device solve. mesh_axis names the
+    # mesh's axis, as the reference's configuration does.
     mesh: object | None = None
     mesh_axis: str = "fs"
     # information-path dtype (None = inherit); the solved state keeps the
@@ -83,14 +89,6 @@ def _match_features(end_ids, end_valid, cur_ids, cur_valid, n1, out_cap):
     return joint, hit
 
 
-def _check_config(cfg: JoinConfig):
-    if cfg.mesh is not None or cfg.mesh_axis != "fs":
-        raise NotImplementedError(
-            "JoinConfig.mesh/mesh_axis: the feature-sharded join over a "
-            "device mesh is not ported (multiple GPUs, ROADMAP queue 1 item "
-            "13)")
-
-
 def _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo: int, cfg: JoinConfig):
     """(Vinv, S, E): the feature-block inverses and the reduced camera
     system in the information dtype, from one K2 launch (Vinv and
@@ -104,7 +102,6 @@ def _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo: int, cfg: JoinConfig):
 def join_stereo(end: types.LocalMap, cur: types.LocalMap,
                 cfg: JoinConfig = JoinConfig()):
     """Fuse the lanes of two stacked stereo maps sharing the same gauge."""
-    _check_config(cfg)
     P = end.poses.shape[0]
     M1, N1, N2 = end.M, end.N, cur.N
     Mo, No = M1 + cur.M, N1 + N2
@@ -148,7 +145,22 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
     # ---- Schur + solve -----------------------------------------------------
     pose_valid = torch.cat([end.pose_mask(), cur.pose_mask()], dim=1)
     fixed = ~pose_valid.repeat_interleave(6, dim=1)
-    if cfg.method == "refine":
+    nan = torch.full((P,), torch.nan, dtype=eP.dtype, device=dev)
+    if cfg.mesh is not None and cfg.method in ("refine", "direct"):
+        if cfg.method == "refine":
+            # the production accuracy: the feature-sharded full-system PCG
+            xp, xf, res = shard_solve.sharded_full_mixed(
+                U, Uij, W, Wpf, V, eP, eF, Mo, fixed, mesh=cfg.mesh,
+                axis=cfg.mesh_axis, iters=cfg.refine_iters,
+                escalate_iters=cfg.escalate_iters,
+                escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
+        else:
+            xp, xf = shard_solve.sharded_schur_solve(
+                U, Uij, W, Wpf, V, eP, eF, Mo, cfg.max_obs, cfg.mesh,
+                axis=cfg.mesh_axis, fixed_mask=fixed, method=cfg.method,
+                refine_iters=cfg.refine_iters)
+            res = nan
+    elif cfg.method == "refine":
         xp, xf, res = schur.solve_full_mixed(
             U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
             force_dense=cfg.dense_schur, iters=cfg.refine_iters,
@@ -160,7 +172,7 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
                                  refine_iters=cfg.refine_iters
                                  ).reshape(P, Mo, 6)
         xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
-        res = torch.full((P,), torch.nan, dtype=xp.dtype, device=dev)
+        res = nan
     else:
         raise ValueError(f"unknown join method {cfg.method!r}")
     xp = xp.to(end.dtype)
@@ -186,7 +198,6 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     slots (id -1, zero information, gauge-masked); every block touching the
     zero-information reference pose is zeroed.
     """
-    _check_config(cfg)
     P = end.poses.shape[0]
     M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N
     Mo, No = M1 + M2, N1 + N2
@@ -272,14 +283,35 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     fixc = 6 * pos2 + end.gauge.fix
     fixed |= coord == fixc[:, None]                   # the pinned scale coord
     sign = end.gauge.sign.to(idt)
+    nan = torch.full((P,), torch.nan, dtype=eP.dtype, device=dev)
 
-    if cfg.method == "refine" and cfg.pin == "sign":
+    known = (cfg.method in ("direct", "refine")
+             and cfg.pin in ("sign", "zero"))
+    if cfg.mesh is not None and known:
+        if cfg.method == "refine" and cfg.pin == "sign":
+            xp, xf, res = shard_solve.sharded_full_mixed(
+                U, Uij, W, Wpf, V, eP, eF, Mo, fixed, mesh=cfg.mesh,
+                axis=cfg.mesh_axis, iters=cfg.refine_iters, fixc=fixc,
+                sign=sign, escalate_iters=cfg.escalate_iters,
+                escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
+        else:
+            # as the reference: with gauge-conditioned inputs the pinned
+            # coordinate carries no information, so the right-hand side
+            # needs no correction; the pin is written back after the
+            # back-substitution
+            xp, xf = shard_solve.sharded_schur_solve(
+                U, Uij, W, Wpf, V, eP, eF, Mo, cfg.max_obs, cfg.mesh,
+                axis=cfg.mesh_axis, fixed_mask=fixed, method=cfg.method,
+                refine_iters=cfg.refine_iters)
+            xp = schur.pin_coordinate(xp, fixc, sign)
+            res = nan
+    elif cfg.method == "refine" and cfg.pin == "sign":
         xp, xf, res = schur.solve_full_mixed(
             U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
             force_dense=cfg.dense_schur, iters=cfg.refine_iters,
             fixc=fixc, sign=sign, escalate_iters=cfg.escalate_iters,
             escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
-    elif cfg.method in ("direct", "refine") and cfg.pin in ("sign", "zero"):
+    elif known:
         # direct, or refine with pin "zero" (the reduced system's f32
         # factor with refinement sweeps, as the reference)
         Vinv, S, E = _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo, cfg)
@@ -298,7 +330,7 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
             # coordinate still at 0, set it to sign afterwards
             xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
             xp = schur.pin_coordinate(xp, fixc, sign)
-        res = torch.full((P,), torch.nan, dtype=xp.dtype, device=dev)
+        res = nan
     else:
         raise ValueError(f"join_mono: no solve for method={cfg.method!r}, "
                          f"pin={cfg.pin!r}")

@@ -6,6 +6,7 @@ the reference C++ solver (LinearSFMImp.cpp:97-112, :3136-3152).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -19,6 +20,28 @@ from .device_tree import DeviceTreeSolver
 from .tree import TreeSolver
 
 log = logging.getLogger("linearsfm_tpu_torch")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms` for the enclosed work: on the
+    GPU `index_add_` and `index_put_` then sum in a fixed order, so two
+    runs give the same bits. An operation without a fixed-order version
+    warns and runs as it is. cuBLAS wants a fixed workspace then
+    (CUBLAS_WORKSPACE_CONFIG=:4096:8, set for the enclosed work unless the
+    caller set it). The previous settings are restored."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 def load_local_maps(path: str, num: int, datatype: str) -> list:
@@ -48,7 +71,8 @@ def run(path: str, num: int, datatype: str,
     feature and state files are written as the reference does. Logged at
     INFO: the read time and the parser used, the solve wall, the solver's
     host phases, the solve's kernel launches, its peak device memory (on a
-    GPU) and the write time.
+    GPU) and the write time. The direct mono solve sums in a fixed order
+    (`deterministic`).
     """
     device = torch.device(device)
     if solver is None:
@@ -73,16 +97,21 @@ def run(path: str, num: int, datatype: str,
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     kw = dict(metrics=metrics, ckpt_dir=ckpt_dir, resume=resume)
-    if trace_dir:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
+    # on an H100 the direct mono solve's atomic sums moved its poses by up
+    # to 7.4e-6 from run to run, and summing in a fixed order cost it no
+    # measurable wall; stereo moved 2e-13 and would pay 11-17% (PERF.md §6)
+    fixed_order = method == "direct" and datatype == "mono"
+    with deterministic() if fixed_order else contextlib.nullcontext():
+        if trace_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=acts) as prof:
+                final = solver.run(maps, **kw)
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        else:
             final = solver.run(maps, **kw)
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-    else:
-        final = solver.run(maps, **kw)
     final = types.host_fields(final)   # one copy of the root to the host
     wall = time.perf_counter() - t0
     log.info("Total Used Time:  %f  sec", wall)

@@ -16,8 +16,10 @@ grouped per feature, with the exact `max_obs` the host counts, or dense
 from `ops/schur._DENSE_SCHUR_DIM` up; its kernels run on a CUDA device as
 on every other path (K2 at every join, K1 in every dense assembly).
 
-Not ported: the mesh (`mesh`, `root_mesh`: multiple GPUs); passing one
-raises.
+Over meshes (`parallel/mesh.Mesh`): `mesh` splits each level-batched join's
+pairs over its shards (`parallel/level.level_merge_fn`), and `root_mesh`
+shards the feature axis of the single-pair joins of at least
+`root_shard_min` poses (`JoinConfig.mesh`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from .. import types
 from ..ops import congruence
 from ..parallel import level as plevel
+from ..parallel.mesh import canonical
 from ..utils import checkpoint
 from . import compact as compact_mod
 from . import join as join_mod
@@ -52,19 +55,6 @@ def _max_obs_per_feature(lm) -> int:
     return int(np.bincount(f).max())
 
 
-def _pad_to(lm: types.LocalMap, M: int, N: int, KU: int,
-            KW: int) -> types.LocalMap:
-    """Grow the capacities of a host-form map (no-op where large enough)."""
-    def pad(x, k, fill=0):
-        return np.pad(x, [(0, max(k, x.shape[0]) - x.shape[0])]
-                      + [(0, 0)] * (x.ndim - 1), constant_values=fill)
-    return dataclasses.replace(
-        lm, pose_ids=pad(lm.pose_ids, M, -1), poses=pad(lm.poses, M),
-        feat_ids=pad(lm.feat_ids, N, -1), feats=pad(lm.feats, N),
-        U=pad(lm.U, KU), Uij=pad(lm.Uij, KU), W=pad(lm.W, KW),
-        Wpf=pad(lm.Wpf, KW), V=pad(lm.V, N))
-
-
 class TreeSolver:
     """Runs the merge tree for one data type ("stereo" | "mono") on
     `device` (explicit; nothing is picked by default).
@@ -76,26 +66,30 @@ class TreeSolver:
     mono pin "zero": the reduced system's f32 factor with refinement
     sweeps), `refine_iters` sweeps. pin: the mono scale pin (`JoinConfig`).
     bucket/u_bucket: the compaction's capacity buckets. progress: log each
-    level.
+    level. mesh, root_mesh, root_shard_min: see the module docstring; each
+    mesh's first device must be `device`.
     """
 
     def __init__(self, datatype: str, method: str = "direct",
                  refine_iters: int = 3, bucket: int = 16, u_bucket: int = 64,
                  progress: bool = False, strategy: str = "level", mesh=None,
-                 pin: str = "sign", root_mesh=None, *, device):
+                 pin: str = "sign", root_mesh=None, root_shard_min: int = 256,
+                 *, device):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
         if strategy not in ("level", "serial"):
             raise ValueError(f"strategy must be 'level' or 'serial', got "
                              f"{strategy!r}")
-        if mesh is not None or root_mesh is not None:
-            raise NotImplementedError(
-                "TreeSolver mesh and root_mesh: the mesh-parallel levels and the "
-                "feature-sharded root are not ported (multiple GPUs, ROADMAP "
-                "queue 1 item 13)")
         self.datatype = datatype
         self.device = torch.device(device)
+        for m in (mesh, root_mesh):
+            if m is not None and canonical(device) != m.devices[0]:
+                raise ValueError(f"TreeSolver: device {device} is not the "
+                                 f"first device of {m}")
+        self.mesh = mesh
+        self.root_mesh = root_mesh
+        self.root_shard_min = root_shard_min
         self.method = method
         self.refine_iters = refine_iters
         self.bucket = bucket
@@ -141,10 +135,15 @@ class TreeSolver:
         # a shared max_obs for the fused map (upper bound: sum of both sides)
         mo = types.bucket(_max_obs_per_feature(gd) + _max_obs_per_feature(m),
                           4)
+        cfg = self._cfg(mo)
+        if (self.root_mesh is not None
+                and gd.M + md.M >= self.root_shard_min):
+            cfg = cfg._replace(mesh=self.root_mesh,
+                               mesh_axis=self.root_mesh.axis)
         if self.datatype == "stereo":
-            out = join_mod.join_stereo(gd, md, self._cfg(mo))
+            out = join_mod.join_stereo(gd, md, cfg)
         else:
-            out = join_mod.join_mono(gd, md, self._cfg(mo))
+            out = join_mod.join_mono(gd, md, cfg)
         self.join_count += 1
         return types.to_numpy(types.lanes(out, 0))
 
@@ -167,26 +166,34 @@ class TreeSolver:
         both = gs + ms
         caps = [max(getattr(lm, k) for lm in both)
                 for k in ("M", "N", "KU", "KW")]
-        both = [_pad_to(lm, *caps) for lm in both]
+        both = [types.pad_to(lm, *caps) for lm in both]
         gs, ms = both[:len(gs)], both[len(gs):]
         # +1/+2: the merge transforms g, which adds one (r, f) coupling per
         # feature (mono also (s, f)) to g's own entries
         span = 1 if self.datatype == "stereo" else 2
         mo = types.bucket(max(_max_obs_per_feature(g) for g in gs) + span
                           + max(_max_obs_per_feature(m) for m in ms), 4)
+        npair = len(gs)
+        if self.mesh is not None:   # clones of the last pair, dropped below
+            pad = (-npair) % self.mesh.size
+            gs, ms = gs + [gs[-1]] * pad, ms + [ms[-1]] * pad
         G = types.to_torch(plevel.stack_maps(gs), self.device)
         Mb = types.to_torch(plevel.stack_maps(ms), self.device)
         t1 = time.perf_counter()
-        out = self._merge(G, Mb, self._cfg(mo))
+        if self.mesh is not None:
+            out = plevel.level_merge_fn(self.datatype, self._cfg(mo),
+                                        self.mesh)(G, Mb)
+        else:
+            out = self._merge(G, Mb, self._cfg(mo))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
-        res = plevel.unstack_maps(out)
+        res = plevel.unstack_maps(out)[:npair]
         t3 = time.perf_counter()
         self._last_timing = dict(prep=round(t1 - t0, 4),
                                  device=round(t2 - t1, 4),
                                  get=round(t3 - t2, 4), max_obs=mo)
-        self.join_count += len(gs)
+        self.join_count += npair
         return res
 
     # -- full tree -----------------------------------------------------------

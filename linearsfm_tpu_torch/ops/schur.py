@@ -42,12 +42,12 @@ def dense_w_bytes() -> int:
     return int(os.environ.get("LINEARSFM_DENSE_W_BYTES", 1 << 29))
 
 
-def _bmv(a, v):
+def bmv(a, v):
     """[..., i, k] @ [..., k] -> [..., i]."""
     return (a @ v[..., None])[..., 0]
 
 
-def _bmv_t(a, v):
+def bmv_t(a, v):
     """a^T v: [..., k, i] x [..., k] -> [..., i]."""
     return (a.transpose(-1, -2) @ v[..., None])[..., 0]
 
@@ -67,19 +67,21 @@ def inv3x3_wy(V, W, Wpf):
 
 def info_vector(poses, feats, U, Uij, W, Wpf, V):
     """(eP [P,M,6], eF [P,N,3]) = I @ x, accumulated blockwise in the
-    information dtype (the states are cast to it)."""
+    information dtype (the states are cast to it). V None leaves out the
+    feature blocks' term (a shard's part of the product, whose V term is
+    added once after the sum)."""
     poses = poses.to(U.dtype)
     feats = feats.to(U.dtype)
     M, N = poses.shape[1], feats.shape[1]
     ui, uj = Uij[..., 0], Uij[..., 1]
     wp, wf = Wpf[..., 0], Wpf[..., 1]
     offd = (ui != uj)[..., None]
-    eP = seg_sum(_bmv(U, take(poses, uj)), ui, M)
-    eP += seg_sum(torch.where(offd, _bmv_t(U, take(poses, ui)),
+    eP = seg_sum(bmv(U, take(poses, uj)), ui, M)
+    eP += seg_sum(torch.where(offd, bmv_t(U, take(poses, ui)),
                               U.new_zeros(())), uj, M)
-    eP += seg_sum(_bmv(W, take(feats, wf)), wp, M)
-    eF = _bmv(V, feats)
-    eF += seg_sum(_bmv_t(W, take(poses, wp)), wf, N)
+    eP += seg_sum(bmv(W, take(feats, wf)), wp, M)
+    eF = bmv(V, feats) if V is not None else torch.zeros_like(feats)
+    eF += seg_sum(bmv_t(W, take(poses, wp)), wf, N)
     return eP, eF
 
 
@@ -92,12 +94,35 @@ densify_blocks = kernels.blockcoo_to_dense
 densify_planned = kernels.blockcoo_to_dense_planned
 
 
-def _require_full_f32(device: torch.device):
+def require_full_f32(device: torch.device):
     """The f32 Schur products must not run in TF32 on the GPU (the
     counterpart of the reference's highest matmul precision)."""
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be "
                            "False: the Schur preconditioner needs full f32")
+
+
+def dense_a32(U, Uij, M: int):
+    """The pose block A [P, 6M, 6M] of float32 U lists, through kernel K1:
+    zero-valued entries (list padding, dropped couplings) go to row -1, and
+    the symmetric completion is D + D^T with the double-counted diagonal
+    blocks, accumulated as a [P, M, 6, 6] segment sum and symmetrised,
+    taken off the block diagonal."""
+    ui, uj = Uij[..., 0], Uij[..., 1]
+    dev = U.device
+    urow = torch.where((U != 0).any(dim=(-1, -2)), ui, -1)
+    D = densify_blocks(urow, uj, U, M, M)
+    dmask = (ui == uj) & (urow >= 0)
+    diag = seg_sum(torch.where(dmask[..., None, None], U, U.new_zeros(())),
+                   torch.where(dmask, ui, M), M)
+    corr = 0.5 * (diag + diag.transpose(-1, -2))
+    A = D + D.transpose(-1, -2)
+    i6 = torch.arange(M, device=dev)[:, None, None] * 6
+    r6 = torch.arange(6, device=dev)
+    rows = (i6 + r6[None, :, None]).expand(M, 6, 6)
+    cols = (i6 + r6[None, None, :]).expand(M, 6, 6)
+    A[:, rows, cols] -= corr
+    return A
 
 
 def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
@@ -107,12 +132,11 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
     Yb: the blocks W @ Vinv[wf] of the W list (`inv3x3_wy`), where the
     reference takes Vinv and forms them here. The W list is sorted once
     (`kernels.coo_plan`): Wd, Yd and every feature stripe of both densify
-    that one plan. float32 (the preconditioner side):
-    zero-valued entries are routed to row -1, and A's symmetric completion
-    is D + D^T with the double-counted diagonal blocks taken off
-    (`sym_complete`). Above `dense_w_bytes()` per lane the feature axis is
-    cut into stripes, column windows of the plan: S and E accumulate stripe
-    by stripe, bounding the live set by two stripes. float64 (the
+    that one plan (`w_plan`). float32 (the preconditioner side): A from
+    `dense_a32`, and above `dense_w_bytes()` per lane the feature axis cut
+    into stripes, column windows of the plan (`schur_stripes`): S and E
+    accumulate stripe by stripe, bounding the live set by two stripes.
+    float64 (the
     plain-Cholesky levels) densifies A's transposed blocks directly, as the
     reference does.
     """
@@ -129,53 +153,46 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
         Wd = densify_planned(wplan, W)
         Yd = densify_planned(wplan, Yb)
         S = A - Yd @ Wd.transpose(-1, -2)
-        E = eP.reshape(P, -1) - _bmv(Yd, eF.reshape(P, -1))
+        E = eP.reshape(P, -1) - bmv(Yd, eF.reshape(P, -1))
         return S, E
 
-    _require_full_f32(dev)
+    require_full_f32(dev)
+    S = dense_a32(U, Uij, M)
+    wplan = w_plan(W, Wpf, M, N)
+    E = schur_stripes(S, eP.reshape(P, -1).to(dtype), wplan, W, Yb, eF, M)
+    return S, E
 
-    def sym_complete(D, urow):
-        """A = D + D^T minus the double-counted diagonal blocks, which are
-        accumulated as a [P, M, 6, 6] segment sum, symmetrised, and taken
-        off the block diagonal."""
-        dmask = (ui == uj) & (urow >= 0)
-        diag = seg_sum(torch.where(dmask[..., None, None], U, U.new_zeros(())),
-                       torch.where(dmask, ui, M), M)
-        corr = 0.5 * (diag + diag.transpose(-1, -2))
-        A = D + D.transpose(-1, -2)
-        i6 = torch.arange(M, device=dev)[:, None, None] * 6
-        r6 = torch.arange(6, device=dev)
-        rows = (i6 + r6[None, :, None]).expand(M, 6, 6)
-        cols = (i6 + r6[None, None, :]).expand(M, 6, 6)
-        A[:, rows, cols] -= corr
-        return A
 
-    # zero-valued entries (list padding, dropped couplings) go to row -1
-    urow = torch.where((U != 0).any(dim=(-1, -2)), ui, -1)
-    S = sym_complete(densify_blocks(urow, uj, U, M, M), urow)
-    wplan = kernels.coo_plan(torch.where((W != 0).any(dim=(-1, -2)), wp, -1),
-                             wf, M, N)
-    E = eP.reshape(P, -1).to(dtype)
-    budget = dense_w_bytes()
-    if 6 * M * 3 * N * 4 <= budget:
-        Wd = densify_planned(wplan, W)
-        Yd = densify_planned(wplan, Yb)
+def w_plan(W, Wpf, M: int, N: int) -> kernels.CooPlan:
+    """K1's plan of a float32 W list (zero-valued entries to row -1): Wd,
+    Yd and every feature stripe of both densify this one sort."""
+    wp, wf = Wpf[..., 0], Wpf[..., 1]
+    return kernels.coo_plan(torch.where((W != 0).any(dim=(-1, -2)), wp, -1),
+                            wf, M, N)
+
+
+def schur_stripes(S, E, wplan, W, Yb, eF, M: int, lo: int = 0,
+                  width: int | None = None):
+    """S -= Yd Wd^T (in place) and E - Yd eF over the plan's feature columns
+    [lo, lo + width) (all N by default; past N the columns are empty), with
+    Wd and Yd densified by K1: all at once while a dense [6M, 3 width] f32
+    layout fits `dense_w_bytes()`, else in the fewest equal stripes that
+    do, so that at most two stripes are live. Returns the new E."""
+    P, N = eF.shape[0], eF.shape[1]
+    width = N - lo if width is None else width
+    nch = -(-(6 * M * 3 * width * 4) // dense_w_bytes())
+    Nc = -(-width // max(nch, 1))
+    nch = -(-width // max(Nc, 1))
+    eFp = torch.nn.functional.pad(eF, (0, 0, 0, max(0, lo + Nc * nch - N)))
+    for c in range(nch):
+        a = lo + c * Nc
+        Wd = densify_planned(wplan, W, a, Nc)
+        Yd = densify_planned(wplan, Yb, a, Nc)
         # in place: S is [12288, 12288] f32 (0.6 GB) at the 2,048-map root
         S.baddbmm_(Yd, Wd.transpose(-1, -2), alpha=-1.0)
-        return S, E - _bmv(Yd, eF.reshape(P, -1))
-
-    nch = -(-(6 * M * 3 * N * 4) // budget)
-    Nc = -(-N // nch)
-    nch = -(-N // Nc)
-    eFp = torch.nn.functional.pad(eF, (0, 0, 0, Nc * nch - N))
-    for c in range(nch):
-        lo = c * Nc
-        Wd = densify_planned(wplan, W, lo, Nc)
-        Yd = densify_planned(wplan, Yb, lo, Nc)
-        S.baddbmm_(Yd, Wd.transpose(-1, -2), alpha=-1.0)
-        E = E - _bmv(Yd, eFp[:, lo:lo + Nc].reshape(P, -1))
+        E = E - bmv(Yd, eFp[:, a:a + Nc].reshape(P, -1))
         del Wd, Yd
-    return S, E
+    return E
 
 
 def group_by_feature(Wpf, N: int, max_obs: int, entry_valid=None):
@@ -228,44 +245,61 @@ def assemble_schur(U, Uij, W, Wpf, Yb, eP, eF, M: int, max_obs: int,
     if force_dense or 6 * M >= _DENSE_SCHUR_DIM:
         return _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M)
     P, N = eF.shape[0], eF.shape[1]
-    dev = U.device
-    ui, uj = Uij[..., 0], Uij[..., 1]
     wp, wf = Wpf[..., 0], Wpf[..., 1]
+    S = u_blocks(U, Uij, M)
+    Wg, pg, flat, scale = group_w(W, Wpf, M, N, max_obs)
+    Yg = take(Yb, flat).view(P, N, max_obs, 6, 3) * scale[..., None, None]
+    S = subtract_pairs(S, Yg, Wg, pg, M)
+    E = eP - seg_sum(bmv(Yb, take(eF, wf)), wp, M)
+    return S, E.reshape(P, 6 * M)
 
-    # S as [P, M*M] 6x6 blocks (row-block i, column-block j at i*M + j)
+
+def u_blocks(U, Uij, M: int):
+    """The U lists as [P, M*M, 6, 6] blocks (row-block i, column-block j
+    at i*M + j), off-diagonal blocks completed by their transposes."""
+    ui, uj = Uij[..., 0], Uij[..., 1]
     inside = (ui >= 0) & (ui < M) & (uj >= 0) & (uj < M)
     S = seg_sum(U, torch.where(inside, ui * M + uj, -1), M * M)
     S += seg_sum(torch.where((ui != uj)[..., None, None], U.transpose(-1, -2),
                              U.new_zeros(())),
                  torch.where(inside, uj * M + ui, -1), M * M)
+    return S
 
-    # entries with an exactly-zero block (padding, dropped couplings) add
-    # nothing; leaving them out keeps them from crowding feature buckets
+
+def group_w(W, Wpf, M: int, N: int, max_obs: int):
+    """Each lane's W entries grouped by feature (`group_by_feature`; entries
+    with an exactly-zero block, padding and dropped couplings, are left out
+    so that they crowd no feature bucket). Returns (Wg [P, N, O, 6, 3], pg
+    [P, N, O] their poses, flat [P, N*O] their list indices, scale [P, N,
+    O]): empty slots scale to zero, and an undersized max_obs, which would
+    drop Schur terms, poisons its lane with NaN."""
+    P = Wpf.shape[0]
     entry, valid, overflowed = group_by_feature(
         Wpf, N, max_obs, entry_valid=(W != 0).any(dim=(-1, -2)))
-    # an undersized max_obs would drop Schur terms: poison the lane instead
-    poison = torch.where(overflowed, torch.nan, 1.0).to(U.dtype)
-    scale = valid.to(U.dtype) * poison[:, None, None]            # [P, N, O]
+    poison = torch.where(overflowed, torch.nan, 1.0).to(W.dtype)
+    scale = valid.to(W.dtype) * poison[:, None, None]            # [P, N, O]
     flat = entry.reshape(P, -1)
     Wg = take(W, flat).view(P, N, max_obs, 6, 3) * scale[..., None, None]
-    Yg = take(Yb, flat).view(P, N, max_obs, 6, 3) * scale[..., None, None]
-    pg = torch.clamp(take(wp, flat).view(P, N, max_obs), 0, M - 1)
+    pg = torch.clamp(take(Wpf[..., 0], flat).view(P, N, max_obs), 0, M - 1)
+    return Wg, pg, flat, scale
 
-    # pairwise products Y_o W_q^T of each feature's observations o, q at
-    # block (p_o, p_q), accumulated in feature chunks: the [P, N, O, O, 6, 6]
-    # tensor is too large to hold whole at the upper levels
+
+def subtract_pairs(S, Yg, Wg, pg, M: int):
+    """S [P, M*M, 6, 6] (overwritten) minus the pairwise products
+    Y_o W_q^T of each feature's observations o, q at block (p_o, p_q),
+    accumulated in feature chunks (the [P, N, O, O, 6, 6] tensor is too
+    large to hold whole at the upper levels); returns S as [P, 6M, 6M]."""
+    P, N, O = pg.shape
     S = S.reshape(P * M * M, 6, 6)
-    base = lane_ids(P, dev)[:, :, None, None] * (M * M)
-    chunk = max(1, min(N, _SCHUR_CHUNK_BLOCKS // max(1, P * max_obs ** 2)))
+    base = lane_ids(P, S.device)[:, :, None, None] * (M * M)
+    chunk = max(1, min(N, _SCHUR_CHUNK_BLOCKS // max(1, P * O ** 2)))
     for lo in range(0, N, chunk):
         Yc, Wc, pc = Yg[:, lo:lo + chunk], Wg[:, lo:lo + chunk], pg[:, lo:lo + chunk]
         C = Yc[:, :, :, None] @ Wc[:, :, None].transpose(-1, -2)
         key = base + pc[..., :, None] * M + pc[..., None, :]
         S.index_add_(0, key.reshape(-1), C.reshape(-1, 6, 6), alpha=-1)
-    S = S.view(P, M, M, 6, 6).permute(0, 1, 3, 2, 4).reshape(P, 6 * M, 6 * M)
-
-    E = eP - seg_sum(_bmv(Yb, take(eF, wf)), wp, M)
-    return S, E.reshape(P, 6 * M)
+    return S.view(P, M, M, 6, 6).permute(0, 1, 3, 2, 4).reshape(P, 6 * M,
+                                                                 6 * M)
 
 
 def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
@@ -302,19 +336,62 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     dt = U.dtype
     f32 = torch.float32
     P, N = V.shape[0], V.shape[1]
-    dev = U.device
     wp, wf = Wpf[..., 0], Wpf[..., 1]
-    lane = torch.arange(P, device=dev)
 
     U32, W32, V32 = U.to(f32), W.to(f32), V.to(f32)
     # one K2 launch: Y32 = W Vinv32[wf] is the assembly's Yb and the PCG's Y
     Vinv32, Y32 = inv3x3_wy(V32, W32, Wpf)
-    S32, E32 = assemble_schur(U32, Uij, W32, Wpf, Y32, eP.to(f32),
-                              eF.to(f32), M, max_obs, force_dense=force_dense)
+    # the caller keeps no reference to S32: the factor's masked copy
+    # replaces it (0.6 GB at the 2,048-map root)
+    sch32, E32 = precond_factor(
+        *assemble_schur(U32, Uij, W32, Wpf, Y32, eP.to(f32), eF.to(f32), M,
+                        max_obs, force_dense=force_dense),
+        fixed_mask, fixc, sign)
+    freeP = free_poses(fixed_mask, M, fixc)
+
+    def pin(xp):
+        return xp if fixc is None else pin_coordinate(xp, fixc, sign)
+
+    zero = U.new_zeros(())
+    xp0 = pin(sch32(E32).reshape(P, M, 6).to(dt))
+    xf0 = backsub_features(W32, Wpf, Vinv32, eF.to(f32), xp0.to(f32)).to(dt)
+
+    def precond(rP, rF):
+        """M^{-1} r with the f32 Schur factor; zero at fixed coordinates."""
+        rF32 = rF.to(f32)
+        red = rP.to(f32) - seg_sum(bmv(Y32, take(rF32, wf)), wp, M)
+        red = torch.where(freeP, red, red.new_zeros(()))
+        dxp = sch32(red.reshape(P, -1)).reshape(P, M, 6)
+        dxp = torch.where(freeP, dxp, dxp.new_zeros(()))
+        wtx = seg_sum(bmv_t(W32, take(dxp, wp)), wf, N)
+        dxf = bmv(Vinv32, rF32 - wtx)
+        return dxp.to(dt), dxf.to(dt)
+
+    def matvec(xp, xf):
+        iP, iF = info_vector(xp, xf, U, Uij, W, Wpf, V)
+        return torch.where(freeP, iP, zero), iF
+
+    xp, xf, res = pcg(matvec, precond, xp0, xf0, eP, eF, freeP, iters=iters,
+                      exit_tol=exit_tol, escalate_iters=escalate_iters,
+                      escalate_tol=escalate_tol)
+    return pin(xp), xf, res
+
+
+def precond_factor(S32, E32, fixed_mask, fixc=None, sign=None):
+    """(sch32, E32) for the PCG's preconditioner, from the f32 reduced
+    system S32 [P, d, d] (overwritten) and E32 [P, d]: the mono pin moves
+    the pinned column to the right-hand side (E32 -= S32[:, fixc] sign),
+    the gauge is masked (`solve.mask_gauge`), and S is equilibrated, Ss =
+    D S D with D = diag(S)^{-1/2}, plus a 4 eps_f32 jitter on the diagonal,
+    which keeps it positive definite when S is numerically indefinite in
+    f32; a lane whose factorisation still fails turns NaN. sch32(rhs32)
+    applies S^{-1} through the one f32 Cholesky factor."""
+    f32 = torch.float32
+    P = S32.shape[0]
     if fixc is not None:
+        lane = torch.arange(P, device=S32.device)
         E32 = E32 - S32[lane, :, fixc] * sign.to(f32)[:, None]
     S32, E32 = solve.mask_gauge(S32, E32, fixed_mask)
-    # equilibrate + jitter: Ss = D S D with D = diag(S)^{-1/2}
     d32 = S32.diagonal(dim1=-2, dim2=-1)
     dsc = torch.where(d32 > 0, torch.rsqrt(torch.clamp_min(d32, 1e-30)),
                       torch.ones_like(d32))
@@ -327,40 +404,39 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     def sch32(rhs32):
         # both triangular solves on the one factor L
         return dsc * torch.cholesky_solve((rhs32 * dsc)[..., None], L)[..., 0]
+    return sch32, E32
 
+
+def free_poses(fixed_mask, M: int, fixc=None):
+    """[P, M, 6] True at the pose coordinates the solve moves: not
+    gauge-fixed, and not the mono pin's coordinate fixc [P]."""
+    P = fixed_mask.shape[0]
     freeP = ~fixed_mask.reshape(P, M, 6)
     if fixc is not None:
         freeP = freeP.reshape(P, -1).clone()
-        freeP[lane, fixc] = False
+        freeP[torch.arange(P, device=fixed_mask.device), fixc] = False
         freeP = freeP.reshape(P, M, 6)
+    return freeP
 
-    def pin(xp):
-        return xp if fixc is None else pin_coordinate(xp, fixc, sign)
 
-    zero = U.new_zeros(())
-    xp0 = pin(sch32(E32).reshape(P, M, 6).to(dt))
-    xf0 = backsub_features(W32, Wpf, Vinv32, eF.to(f32), xp0.to(f32)).to(dt)
+def pcg(matvec, precond, xp0, xf0, eP, eF, freeP, *, iters: int,
+        exit_tol: float = 0.0, escalate_iters: int = 0,
+        escalate_tol: float = 1e-8):
+    """The f64 PCG of `solve_full_mixed` on every lane, from (xp0, xf0).
 
-    def precond(rP, rF):
-        """M^{-1} r with the f32 Schur factor; zero at fixed coordinates."""
-        rF32 = rF.to(f32)
-        red = rP.to(f32) - seg_sum(_bmv(Y32, take(rF32, wf)), wp, M)
-        red = torch.where(freeP, red, red.new_zeros(()))
-        dxp = sch32(red.reshape(P, -1)).reshape(P, M, 6)
-        dxp = torch.where(freeP, dxp, dxp.new_zeros(()))
-        wtx = seg_sum(_bmv_t(W32, take(dxp, wp)), wf, N)
-        dxf = _bmv(Vinv32, rF32 - wtx)
-        return dxp.to(dt), dxf.to(dt)
-
-    def matvec(xp, xf):
-        iP, iF = info_vector(xp, xf, U, Uij, W, Wpf, V)
-        return torch.where(freeP, iP, zero), iF
+    matvec(xp, xf) -> (I x)_P masked to freeP, (I x)_F; precond(rP, rF) ->
+    M^{-1} r. iters sweeps, or with exit_tol > 0 at most iters, each lane
+    stopping (frozen while others go on) once its squared residual is <=
+    (exit_tol ||e||)^2; then escalate_iters more sweeps on the lanes whose
+    relative residual is > escalate_tol. Returns (x_p, x_f, res_rel [P])."""
+    dt, dev, P = eP.dtype, eP.device, eP.shape[0]
+    zero = eP.new_zeros(())
 
     def dot(aP, aF, bP, bF):
         return (aP * bP).sum(dim=(1, 2)) + (aF * bF).sum(dim=(1, 2))
 
     # initial residual of the full system at (xp0, xf0), fixed coords pinned
-    iP, iF = info_vector(xp0, xf0, U, Uij, W, Wpf, V)
+    iP, iF = matvec(xp0, xf0)
     rP = torch.where(freeP, eP - iP, zero)
     rF = eF - iF
     zP, zF = precond(rP, rF)
@@ -413,7 +489,7 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
             for _ in range(escalate_iters):
                 more = body(more)
             carry = select(esc, more, carry)
-    return pin(carry[0]), carry[1], res(carry)
+    return carry[0], carry[1], res(carry)
 
 
 def pin_coordinate(xp: torch.Tensor, fixc: torch.Tensor,
@@ -431,5 +507,5 @@ def backsub_features(W, Wpf, Vinv, eF, x_poses):
     x_poses = x_poses.to(W.dtype)
     N = Vinv.shape[1]
     wp, wf = Wpf[..., 0], Wpf[..., 1]
-    wtx = seg_sum(_bmv_t(W, take(x_poses, wp)), wf, N)
-    return _bmv(Vinv, eF - wtx)
+    wtx = seg_sum(bmv_t(W, take(x_poses, wp)), wf, N)
+    return bmv(Vinv, eF - wtx)

@@ -209,6 +209,19 @@ def make_local_map(pose_ids, poses, feat_ids, feats, U, Uij, W, Wpf, V,
         n_U=i32(Uij.shape[0]), n_W=i32(Wpf.shape[0]), gauge=gauge)
 
 
+def pad_to(lm: LocalMap, M: int, N: int, KU: int, KW: int) -> LocalMap:
+    """Grow the capacities of a host-form map (no-op where large enough):
+    ids pad with -1, everything else with 0."""
+    def pad(x, k, fill=0):
+        return np.pad(x, [(0, max(k, x.shape[0]) - x.shape[0])]
+                      + [(0, 0)] * (x.ndim - 1), constant_values=fill)
+    return dataclasses.replace(
+        lm, pose_ids=pad(lm.pose_ids, M, -1), poses=pad(lm.poses, M),
+        feat_ids=pad(lm.feat_ids, N, -1), feats=pad(lm.feats, N),
+        U=pad(lm.U, KU), Uij=pad(lm.Uij, KU), W=pad(lm.W, KW),
+        Wpf=pad(lm.Wpf, KW), V=pad(lm.V, N))
+
+
 def to_torch(obj, device) -> LocalMap:
     """Working-form LocalMap on `device`: integer fields become int64, float
     fields keep their dtype (float64 for every map the generator or the

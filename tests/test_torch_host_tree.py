@@ -224,10 +224,17 @@ def test_tree_solver_matches_reference(case):
 
 
 def test_tree_solver_rejects_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TreeSolver("stereo", mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TreeSolver("mono", root_mesh=object(), device=CPU)
+    """A mesh must start at the solver's device, where the level stacks
+    and the root solve live; one that does is taken (the mesh paths
+    themselves: tests/test_torch_mesh.py)."""
+    from linearsfm_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="first device"):
+        TreeSolver("stereo", mesh=Mesh(("meta", "cpu")), device=CPU)
+    with pytest.raises(ValueError, match="first device"):
+        TreeSolver("mono", root_mesh=Mesh(("meta",), "fs"), device=CPU)
+    s = TreeSolver("stereo", mesh=Mesh(("cpu",) * 2),
+                   root_mesh=Mesh(("cpu",) * 2, "fs"), device=CPU)
+    assert s.mesh.size == 2 and s.root_mesh.axis == "fs"
 
 
 # ---------------------------------------------------------------------------

@@ -411,6 +411,9 @@ def test_port_imports_no_jax():
         "rotations, schur, segment, solve\n"
         "from linearsfm_tpu_torch.core import compact, dcompact, "
         "device_tree, join, plan\n"
+        "from linearsfm_tpu_torch.parallel import level, mesh, multihost, "
+        "shard_solve\n"
+        "import linearsfm_tpu_torch.tools.multihost_worker\n"
         "from linearsfm_tpu_torch.utils import metrics\n"
         "import synth.generate\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -627,3 +630,44 @@ def test_direct_solve_float64_level_batch_on_cuda():
     x = solve.cholesky_solve(S, E)
     r = (S @ x[..., None])[..., 0] - E
     assert float(r.abs().max() / E.abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_sharded_full_mixed_on_cuda():
+    """On the card, the feature-sharded PCG over four shards of one device
+    ("cuda:0" four times) launches K2 once and K1 three times (A, Wd, Yd)
+    per shard and agrees with the single-device solve to 1e-9."""
+    _needs_card()
+    from linearsfm_tpu_torch.ops import schur
+    from linearsfm_tpu_torch.parallel import mesh, shard_solve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(21)
+    M, N, f64 = 8, 40, torch.float64
+    A = torch.randn((M, 6, 6), generator=g, dtype=f64)
+    diag = A @ A.transpose(-1, -2) + 5 * torch.eye(6, dtype=f64)
+    U = torch.cat([diag, 0.1 * torch.randn((M - 1, 6, 6), generator=g,
+                                           dtype=f64)])
+    Uij = torch.cat([torch.arange(M).expand(2, M).T,
+                     torch.stack([torch.arange(M - 1),
+                                  torch.arange(1, M)], dim=1)])
+    wf = torch.arange(N).repeat_interleave(3)
+    wp = torch.randint(0, M, (3 * N,), generator=g)
+    W = 0.3 * torch.randn((3 * N, 6, 3), generator=g, dtype=f64)
+    B = torch.randn((N, 3, 3), generator=g, dtype=f64)
+    V = B @ B.transpose(-1, -2) + 3 * torch.eye(3, dtype=f64)
+    eP = torch.randn((M, 6), generator=g, dtype=f64)
+    eF = torch.randn((N, 3), generator=g, dtype=f64)
+    ops = [t[None].cuda() for t in (U, Uij, W, torch.stack([wp, wf], 1), V,
+                                     eP, eF)]
+    fixed = torch.zeros((1, 6 * M), dtype=torch.bool, device="cuda")
+    n0 = dict(kernels.launches)
+    xp, xf, res = shard_solve.sharded_full_mixed(
+        *ops, M, fixed, mesh.Mesh(("cuda:0",) * 4, "fs"), iters=16)
+    torch.cuda.synchronize()
+    assert kernels.launches["inv3x3_sym"] - n0["inv3x3_sym"] == 4
+    assert (kernels.launches["blockcoo_to_dense"]
+            - n0["blockcoo_to_dense"]) == 12
+    want = schur.solve_full_mixed(*ops, M, fixed, iters=16)
+    torch.testing.assert_close(xp, want[0], atol=1e-9, rtol=0)
+    torch.testing.assert_close(xf, want[1], atol=1e-9, rtol=0)
+    assert float(res[0]) < 1e-10

@@ -235,6 +235,36 @@ def test_pipeline_run_matches_reference(tmp_path, executor):
         _same_text(paths["port"][k], paths["reference"][k])
 
 
+def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
+    """`pipeline.run` solves direct mono, and only that, under
+    `deterministic()`, which restores the caller's settings and
+    CUBLAS_WORKSPACE_CONFIG on the way out."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    before = torch.are_deterministic_algorithms_enabled()
+    with tpipeline.deterministic():
+        assert torch.are_deterministic_algorithms_enabled()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    assert torch.are_deterministic_algorithms_enabled() == before
+    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    seen = []
+    scope = tpipeline.deterministic
+
+    def record():
+        seen.append(True)
+        return scope()
+    monkeypatch.setattr(tpipeline, "deterministic", record)
+    for datatype in ("mono", "stereo"):
+        maps, _, _ = gen.make_dataset(3, datatype, noise=0.005, seed=0)
+        data = str(tmp_path / datatype)
+        _write_dataset(maps, data, datatype)
+        for method in ("direct", "refine"):
+            seen.clear()
+            tpipeline.run(data, 3, datatype, method=method, progress=False,
+                          executor="device", device="cpu")
+            assert seen == ([True] if (datatype, method)
+                            == ("mono", "direct") else [])
+
+
 def test_cli_arguments_and_device(tmp_path, capsys):
     """The reference CLI's messages and exit codes; without --cpu and
     without a CUDA device the CLI stops (exit 1) and does not solve on the
