@@ -48,7 +48,9 @@ Phases, each printing its lines; any failure exits non-zero:
    method="refine", device="cuda")`, one warm run and one timed run. Fails
    unless every pose id 1..2,048 is there and finite, the ATE is within
    1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10
-   and K1 and K2 launched;
+   and K1 and K2 launched. It also prints the `utils/flops` model's f32
+   rate of the timed run and its share of the H100's 67 TFLOP/s f32 peak (a
+   model figure: the per-block constants are not calibrated on the GPU);
 7. the mono main path: the same set in mono (pose 0 is an explicit block:
    ids 0..2,049) through `DeviceTreeSolver("mono", ...)`, checked the same
    way against the oracle's 0.014352172;
@@ -82,11 +84,26 @@ Phases, each printing its lines; any failure exits non-zero:
    over gloo (a free port, a 600 s timeout): ATE within 1e-6 of the
    oracle's and poses within 1e-8 of the single-process direct solve
    (and (d) of (c)); (e) the host executor over a pairs and an fs mesh on
-   a 64-map stereo tree, within 1e-9 of it without meshes.
+   a 64-map stereo tree, within 1e-9 of it without meshes;
+10. the dense planned executor (`core/dense_tree.DenseTreeSolver`): (a)
+   both 2,048-map sets with method="refine" (stereo with the default f32
+   information at the levels of at most 32 joined poses, the bench's
+   BENCH_EXEC=dense; mono with f64 information everywhere, mixed_max_m=0,
+   since the default gives NaN poses there, as it does in the JAX
+   package): a warm run with its 3 level-0 K1 calls and its K2 call of
+   every level held against the plain versions in situ, then a timed run
+   (wall, maps_joined/s, host phases, per-level CUDA-event walls, peak
+   memory, launches, ATE beside the oracle's, pose max |diff| against
+   phases 6-7), failing unless every pose id is there and finite and K1
+   and K2 launched; K2 at the dense stereo root's shape, fused against the
+   inverse alone + `torch.einsum`; (b) `python3 -m linearsfm_tpu_torch.cli
+   ... --exec dense --check` on phase 8's stereo text set (direct): exit
+   0, `LinearSFM Check: OK`, pose-file ATE within 1e-6 of the oracle's and
+   poses within 2e-6 of the device executor's CLI pose file.
 
 The kernel launch counts are set to 0 just before each main path's timed
-run (phases 6, 7, 9a, 9b, and 9c's simulated run) and read just after it; the warm run checks that K2 ran at the shapes
-phase 4 timed. The CLI runs report their own counts (pipeline log); the
+run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a) and read just after
+it; the warm run checks that K2 ran at the shapes phase 4 timed. The CLI runs report their own counts (pipeline log); the
 host run's are set to 0 before `cli.main` and read after it. Every path
 must launch K1 and K2. The line before the last is the kernel record (per kernel:
 launches, max error, kernel, plain, bound and library times and what the
@@ -101,6 +118,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -125,10 +143,9 @@ def _loop_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-# H100 SXM HBM rate and non-tensor f32/f64 peaks (NVIDIA data sheet,
-# 700 W)
+# H100 SXM HBM rate and non-tensor f64 peak (NVIDIA data sheet, 700 W); the
+# f32 peak is `utils/flops.PEAK_F32`
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 
 
@@ -378,7 +395,6 @@ def _device_ms(fns, reps=10):
     fill, outside the measured range, evicts the 50 MB L2, so every call
     reads its inputs from HBM."""
     import statistics
-    import tempfile
     import torch
     from linearsfm_tpu_torch.ops import kernels
     from linearsfm_tpu_torch.tools.profile_k1 import device_us_by_range
@@ -508,6 +524,7 @@ def phase_k2(shapes):
     import torch
     from linearsfm_tpu_torch.ops import kernels
     from linearsfm_tpu_torch.ops.segment import take
+    from linearsfm_tpu_torch.utils.flops import PEAK_F32
 
     max_err = 0.0
     times = {}
@@ -567,7 +584,7 @@ def phase_k2(shapes):
                 "unfused": lambda: W @ take(kernels.inv3x3_sym(V), wf),
                 "library": lambda: W @ take(torch.linalg.inv(V), wf),
                 "plain": lambda: kernels.inv3x3_wy_ref(V, W, Wpf)})
-            peak = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
+            peak = PEAK_F32 if dtype == torch.float32 else F64_FLOP_PER_S
             bound, by = _k2_bound_ms(P, N, K, V.element_size(), peak)
             inv_bound, _ = _k2_bound_ms(P, N, 0, V.element_size(), peak)
             times[(name, dn)] = dict(ms=t["fused"], plain_ms=t["plain"],
@@ -594,7 +611,8 @@ def _k2_shapes(datasets):
     transformed end map's KW_in + N_in (stereo) or KW_in + 2 N_in (mono,
     one more feature family) entries plus cur's KW_in."""
     out = {}
-    for d, (_, _, levels) in datasets.items():
+    for d, (_, _, tp) in datasets.items():
+        levels = tp.levels
         per = 1 if d == "stereo" else 2
         for tag, lp in (("level1", levels[0]), ("root", levels[-1])):
             _, N_in, _, KW_in = lp.caps_in
@@ -634,7 +652,7 @@ def phase_small_trees():
 
 
 def make_dataset(datatype):
-    """The 2,048-map covis set (seed 7) and its tree plan's levels
+    """The 2,048-map covis set (seed 7) and its tree plan
     (`core/plan.plan_tree_exact`, as `DeviceTreeSolver.run` plans it)."""
     from synth import generate as gen
     from linearsfm_tpu_torch.core import compact, plan
@@ -644,25 +662,28 @@ def make_dataset(datatype):
     maps, poses_gt, _ = gen.make_dataset(2048, datatype, noise=0.005, seed=7,
                                          covis_radius=6.0, covis_max=6)
     s = DeviceTreeSolver(datatype, device="cuda")
-    levels = plan.plan_tree_exact(
+    tp = plan.plan_tree_exact(
         plan.sym_of_stacked(compact.compact_stack(maps, s.bucket,
                                                   s.u_bucket)),
-        datatype, s.bucket, s.u_bucket).levels
-    print(f"main {datatype}: dataset 2048 maps and plan ({len(levels)} "
+        datatype, s.bucket, s.u_bucket)
+    print(f"main {datatype}: dataset 2048 maps and plan ({len(tp.levels)} "
           f"levels) in {time.perf_counter() - t0:.2f} s", flush=True)
-    return maps, poses_gt, levels
+    return maps, poses_gt, tp
 
 
-def phase_main_path(datatype, maps, poses_gt, shapes):
-    """One warm and one timed run of the 2,048-map covis set; returns the
-    kernel launch counts of the timed run and its poses by id. The warm
-    run's fused K2 launches must have the shapes phase 4 timed (`shapes`)
-    at level 1 and the root."""
+def phase_main_path(datatype, maps, poses_gt, tp, shapes):
+    """One warm and one timed run of the 2,048-map covis set (`tp`: its
+    tree plan); returns the kernel launch counts of the timed run and its
+    poses by id. The warm run's fused K2 launches must have the shapes
+    phase 4 timed (`shapes`) at level 1 and the root. Also prints the
+    `utils/flops` model's f32 rate of the timed run (a model figure: the
+    model's per-block constants are not calibrated on the GPU)."""
     import numpy as np
     import torch
     from linearsfm_tpu_torch import types
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.utils import flops
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
     n, tag = 2048, f"main {datatype}"
@@ -724,6 +745,16 @@ def phase_main_path(datatype, maps, poses_gt, shapes):
     print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
           f"{ate - oracle:+.3e}), res_max {res_max:.3e}, {len(err)} poses, "
           f"kernel launches {launched}", flush=True)
+    model = flops.mfu(tp, datatype, lambda m: (solver.top_iters
+                                               if m >= solver.top_min_m
+                                               else solver.refine_iters),
+                      wall)
+    print(f"{tag}: model figure (utils/flops, uncalibrated constants, PCG "
+          f"sweeps at their caps): {model['f32_flops']:.4e} f32 FLOP in "
+          f"{wall:.4f} s = {model['achieved_f32_tflops']:.4f} TFLOP/s = "
+          f"{model['mfu_f32']:.4%} of the {flops.PEAK_F32 / 1e12:g} TFLOP/s "
+          f"f32 peak; {model['f64_flops']:.4e} f64 FLOP, "
+          f"{model['gbytes']:.3f} GB modelled traffic", flush=True)
     if not abs(ate - oracle) <= 1e-6:
         raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
     if not res_max <= 1e-10:
@@ -784,17 +815,18 @@ def _run_log(text):
                 write_s=float(w.group(1)), peak_gib=float(p.group(1)))
 
 
-def _cli_subprocess(tag, data, datatype, n, poses_gt, out_dir, run=0):
+def _cli_subprocess(tag, data, datatype, n, poses_gt, out_dir, run=0,
+                    flags=()):
     """`python3 -m linearsfm_tpu_torch.cli` with the default flags (device
-    executor, --method direct, on the GPU) and --check; its pose file is
-    pose_cli_<datatype><run>.txt in out_dir."""
+    executor, --method direct, on the GPU), `flags` and --check; its pose
+    file is pose_cli_<datatype><run>.txt in out_dir."""
     typ = "Stereo" if datatype == "stereo" else "Monocular"
     pose = os.path.join(out_dir, f"pose_cli_{datatype}{run}.txt")
     cmd = [sys.executable, "-m", "linearsfm_tpu_torch.cli", "-path", data,
            "-num", str(n), "-type", typ, "-p", pose,
            "-f", os.path.join(out_dir, f"feat_cli_{datatype}.txt"),
            "-st", os.path.join(out_dir, f"state_cli_{datatype}.txt"),
-           "--check"]
+           *flags, "--check"]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                        timeout=600)
@@ -901,7 +933,6 @@ def _ckpt_resume(tag, make_solver, maps):
     one from an earlier level's, copied aside: poses within 1e-9."""
     import json
     import shutil
-    import tempfile
     import numpy as np
     from linearsfm_tpu_torch.ops import kernels
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
@@ -938,18 +969,18 @@ def _ckpt_resume(tag, make_solver, maps):
         raise AssertionError(f"{tag}: resumed poses differ by {diff}")
 
 
-def phase_entry_points(datasets):
+def phase_entry_points(datasets, tmp):
     """The reference-compatible entry point at 2,048 maps: text datasets
-    written with the port's writer, the CLI as a subprocess (defaults:
-    device executor, direct, GPU) for stereo and mono, the host executor
-    in process through `cli.main` for stereo, and checkpoint/resume of
-    both executors on the small trees. Returns the kernel launches of the
-    stereo host run and of each CLI run."""
+    written with the port's writer into `tmp` (tmp/stereo, tmp/mono; they
+    stay for phase 10), the CLI as a subprocess (defaults: device executor,
+    direct, GPU) for stereo and mono, the host executor in process through
+    `cli.main` for stereo, and checkpoint/resume of both executors on the
+    small trees. Returns the kernel launches of the stereo host run and of
+    each CLI run, and the CLI runs' poses by id."""
     import contextlib
     import io
     import logging
     import re
-    import tempfile
     import numpy as np
     from synth import generate as gen
     from linearsfm_tpu_torch import cli, native
@@ -966,89 +997,88 @@ def phase_entry_points(datasets):
         raise AssertionError("entry: the C local-map parser did not build")
     print(f"entry: C local-map parser built (gcc) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
-        data = {}
-        for d, (maps, _, _) in datasets.items():
-            data[d] = os.path.join(tmp, d)
-            os.makedirs(data[d])
-            t0 = time.perf_counter()
-            _write_dataset(maps, d, data[d])
-            size = sum(os.path.getsize(os.path.join(data[d], f))
-                       for f in os.listdir(data[d]))
-            print(f"entry {d}: wrote {n} local maps ({size / 2**20:.1f} MiB) "
-                  f"with the port's writer in {time.perf_counter() - t0:.3f} "
-                  f"s", flush=True)
-        cli_poses = {}
-        for d in ("stereo", "mono"):
-            cli_poses[d], got = _cli_subprocess(
-                f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
-            launched[f"cli {d}"] = got["launches"]
-        # the direct mono solve sums in a fixed order (core/pipeline): a
-        # second process writes the same pose file, byte for byte
-        _cli_subprocess("entry cli mono (again)", data["mono"], "mono", n,
-                        datasets["mono"][1], tmp, run=1)
-        same = [open(os.path.join(tmp, f"pose_cli_mono{r}.txt"), "rb").read()
-                for r in (0, 1)]
-        print(f"entry cli mono: two processes wrote "
-              f"{'identical' if same[0] == same[1] else 'DIFFERENT'} pose "
-              f"files ({len(same[0])} bytes)", flush=True)
-        if same[0] != same[1]:
-            raise AssertionError("entry cli mono: pose files differ between "
-                                 "two runs")
-        for d in ("stereo", "mono"):
-            _warm_direct(d, datasets[d][0], launched[f"cli {d}"][
-                "blockcoo_to_dense"])
+    data = {}
+    for d, (maps, _, _) in datasets.items():
+        data[d] = os.path.join(tmp, d)
+        os.makedirs(data[d])
+        t0 = time.perf_counter()
+        _write_dataset(maps, d, data[d])
+        size = sum(os.path.getsize(os.path.join(data[d], f))
+                   for f in os.listdir(data[d]))
+        print(f"entry {d}: wrote {n} local maps ({size / 2**20:.1f} MiB) "
+              f"with the port's writer in {time.perf_counter() - t0:.3f} "
+              f"s", flush=True)
+    cli_poses = {}
+    for d in ("stereo", "mono"):
+        cli_poses[d], got = _cli_subprocess(
+            f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
+        launched[f"cli {d}"] = got["launches"]
+    # the direct mono solve sums in a fixed order (core/pipeline): a
+    # second process writes the same pose file, byte for byte
+    _cli_subprocess("entry cli mono (again)", data["mono"], "mono", n,
+                    datasets["mono"][1], tmp, run=1)
+    same = [open(os.path.join(tmp, f"pose_cli_mono{r}.txt"), "rb").read()
+            for r in (0, 1)]
+    print(f"entry cli mono: two processes wrote "
+          f"{'identical' if same[0] == same[1] else 'DIFFERENT'} pose "
+          f"files ({len(same[0])} bytes)", flush=True)
+    if same[0] != same[1]:
+        raise AssertionError("entry cli mono: pose files differ between "
+                             "two runs")
+    for d in ("stereo", "mono"):
+        _warm_direct(d, datasets[d][0], launched[f"cli {d}"][
+            "blockcoo_to_dense"])
 
-        # the host executor, in process, counts from 0
-        tag = "entry host stereo"
-        pose = os.path.join(tmp, "pose_host_stereo.txt")
-        logs = io.StringIO()
-        handler = logging.StreamHandler(logs)
-        pkg_log = logging.getLogger("linearsfm_tpu_torch")
-        pkg_log.addHandler(handler)
-        pkg_log.setLevel(logging.INFO)
-        out = io.StringIO()
-        for k in kernels.launches:
-            kernels.launches[k] = 0
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(["-path", data["stereo"], "-num", str(n),
-                               "-type", "Stereo", "-p", pose, "--exec",
-                               "host", "--check"])
-        finally:
-            pkg_log.removeHandler(handler)
-        wall = time.perf_counter() - t0
-        launched["host stereo"] = dict(kernels.launches)
-        if rc != 0 or "LinearSFM Check: OK" not in out.getvalue():
-            raise AssertionError(f"{tag}: exit {rc}\n{out.getvalue()[-2000:]}")
-        got = _run_log(logs.getvalue())
-        solve = float(out.getvalue().split("Total Used Time:")[1].split()[0])
-        print(f"{tag}: exit 0, LinearSFM Check: OK; wall {wall:.3f} s, read "
-              f"{got['read_s']:.3f} s ({got['parser']} parser), solve "
-              f"{solve:.3f} s, write {got['write_s']:.3f} s, peak device "
-              f"memory {got['peak_gib']:.2f} GiB, host phases of the last "
-              f"level {got['phases']}, kernel launches "
-              f"{launched['host stereo']}", flush=True)
-        if got["parser"] != "C":
-            raise AssertionError(f"{tag}: the C parser was not used")
-        levels = re.findall(r"Level (\d+) done \(\d+ maps, ([0-9.]+)s\)",
-                            logs.getvalue())
-        print(f"{tag}: seconds from the tree's start to the end of each "
-              f"level {[float(t) for _, t in levels]}", flush=True)
-        host = _pose_file_check(tag, pose, "stereo", n, datasets["stereo"][1])
-        diff = max(float(np.abs(host[k] - cli_poses["stereo"][k]).max())
-                   for k in host)
-        print(f"{tag}: pose file vs the device executor's: max |diff| "
-              f"{diff:.3e} (limit 2e-6)", flush=True)
-        if not diff <= 2e-6:
-            raise AssertionError(f"{tag}: pose files differ by {diff}")
-        # the host executor once more, its K1 calls held in situ
-        t0 = time.perf_counter()
-        with _K1InSitu() as held:
-            TreeSolver("stereo", device="cuda").run(datasets["stereo"][0])
-        held.report(f"{tag} (again, {time.perf_counter() - t0:.1f} s)",
-                    launched["host stereo"]["blockcoo_to_dense"])
+    # the host executor, in process, counts from 0
+    tag = "entry host stereo"
+    pose = os.path.join(tmp, "pose_host_stereo.txt")
+    logs = io.StringIO()
+    handler = logging.StreamHandler(logs)
+    pkg_log = logging.getLogger("linearsfm_tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    out = io.StringIO()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-path", data["stereo"], "-num", str(n),
+                           "-type", "Stereo", "-p", pose, "--exec",
+                           "host", "--check"])
+    finally:
+        pkg_log.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    launched["host stereo"] = dict(kernels.launches)
+    if rc != 0 or "LinearSFM Check: OK" not in out.getvalue():
+        raise AssertionError(f"{tag}: exit {rc}\n{out.getvalue()[-2000:]}")
+    got = _run_log(logs.getvalue())
+    solve = float(out.getvalue().split("Total Used Time:")[1].split()[0])
+    print(f"{tag}: exit 0, LinearSFM Check: OK; wall {wall:.3f} s, read "
+          f"{got['read_s']:.3f} s ({got['parser']} parser), solve "
+          f"{solve:.3f} s, write {got['write_s']:.3f} s, peak device "
+          f"memory {got['peak_gib']:.2f} GiB, host phases of the last "
+          f"level {got['phases']}, kernel launches "
+          f"{launched['host stereo']}", flush=True)
+    if got["parser"] != "C":
+        raise AssertionError(f"{tag}: the C parser was not used")
+    levels = re.findall(r"Level (\d+) done \(\d+ maps, ([0-9.]+)s\)",
+                        logs.getvalue())
+    print(f"{tag}: seconds from the tree's start to the end of each "
+          f"level {[float(t) for _, t in levels]}", flush=True)
+    host = _pose_file_check(tag, pose, "stereo", n, datasets["stereo"][1])
+    diff = max(float(np.abs(host[k] - cli_poses["stereo"][k]).max())
+               for k in host)
+    print(f"{tag}: pose file vs the device executor's: max |diff| "
+          f"{diff:.3e} (limit 2e-6)", flush=True)
+    if not diff <= 2e-6:
+        raise AssertionError(f"{tag}: pose files differ by {diff}")
+    # the host executor once more, its K1 calls held in situ
+    t0 = time.perf_counter()
+    with _K1InSitu() as held:
+        TreeSolver("stereo", device="cuda").run(datasets["stereo"][0])
+    held.report(f"{tag} (again, {time.perf_counter() - t0:.1f} s)",
+                launched["host stereo"]["blockcoo_to_dense"])
     for path, counts in launched.items():
         for k, c in counts.items():
             if c <= 0:
@@ -1063,7 +1093,7 @@ def phase_entry_points(datasets):
             _ckpt_resume(f"entry ckpt {m}-map {datatype} {name}", make, maps)
     print(f"entry points: phase {time.perf_counter() - t_phase:.2f} s",
           flush=True)
-    return launched
+    return launched, cli_poses
 
 
 class _K2InSitu:
@@ -1204,7 +1234,6 @@ def _multihost(maps, poses_gt):
     run's launches."""
     import gc
     import socket
-    import tempfile
     import numpy as np
     import torch
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
@@ -1339,12 +1368,164 @@ def phase_mesh(datasets, single):
     mesh = Mesh(("cuda:0",) * 4, "pairs")
     launched = {}
     for d in ("stereo", "mono"):
-        maps, gt, levels = datasets[d]
-        launched[f"mesh {d}"] = _mesh_main_path(d, maps, gt, levels, mesh,
+        maps, gt, tp = datasets[d]
+        launched[f"mesh {d}"] = _mesh_main_path(d, maps, gt, tp.levels, mesh,
                                                 single[d])
     launched["multihost"] = _multihost(*datasets["stereo"][:2])
     _host_mesh()
     print(f"mesh: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launched
+
+
+def _dense_main_path(datatype, maps, poses_gt, single, **solver_kw):
+    """The 2,048-map set through `DenseTreeSolver(datatype, method="refine",
+    device="cuda", **solver_kw)`: a warm run with every K2 call and the
+    level-0 K1 calls held against their plain versions in situ, then a
+    timed run (counts from 0). Fails unless every pose id is there and
+    finite and K1 and K2 launched; prints the ATE beside the oracle's and
+    the poses' max |diff| from phases 6-7's (`single`). Returns the timed
+    run's launches and the root's caps (M, N)."""
+    import numpy as np
+    import torch
+    from linearsfm_tpu_torch.core.dense_tree import DenseTreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+
+    n, tag = 2048, f"dense {datatype}"
+    oracle = ORACLE_ATE_2048[datatype]
+    solver = DenseTreeSolver(datatype, method="refine", device="cuda",
+                             **solver_kw)
+    print(f"{tag}: DenseTreeSolver(method='refine', mixed_max_m="
+          f"{solver.mixed_max_m})", flush=True)
+    t0 = time.perf_counter()
+    with _K1InSitu() as k1, _K2InSitu() as k2:
+        solver.run(maps)
+    nlev = len(solver._prep[0].levels)
+    print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s (in-situ "
+          f"checks included), {nlev} levels", flush=True)
+    k1.report(f"{tag} level 0")
+    print(f"{tag}: every fused K2 call held against the plain version in "
+          f"situ (torch.equal, both outputs): {k2.calls} calls ok",
+          flush=True)
+    if k1.calls.get("float32", 0) + k1.calls.get("float64", 0) != 3:
+        raise AssertionError(f"{tag}: K1 calls {k1.calls}, want 3")
+    if k2.calls != nlev:
+        raise AssertionError(f"{tag}: {k2.calls} K2 calls, want one per "
+                             f"level ({nlev})")
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    metrics = LevelMetrics()
+    t0 = time.perf_counter()
+    out = solver.run(maps, metrics=metrics, time_levels=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ids, poses = out.pose_ids, out.poses
+    valid = ids >= 0
+    want_ids = (set(range(1, n + 1)) if datatype == "stereo"
+                else set(range(n + 2)))
+    if (sorted(int(i) for i in ids[valid]) != sorted(want_ids)
+            or not np.isfinite(poses[valid]).all()):
+        raise AssertionError(f"{tag}: {int(valid.sum())} valid poses (want "
+                             f"{len(want_ids)} ids), finite="
+                             f"{np.isfinite(poses[valid]).all()}")
+    got = _poses_by_id(out)
+    ate, diff = _ate_of(got, poses_gt), _max_diff(tag, got, single)
+    print(f"{tag}: timed run {wall:.4f} s = {(n - 1) / wall:.2f} "
+          f"maps_joined/s, peak device memory {peak:.2f} GiB, host phases "
+          f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }",
+          flush=True)
+    plan = solver._prep[0]
+    for r, lp in zip(metrics.records, plan.levels):
+        idt, meth = solver._policy(2 * lp.caps_in[0])
+        print(f"{tag}: level {r['level']:2d} joins {r['n_joins']:4d} caps "
+              f"in {lp.caps_in} out {lp.caps_out} "
+              f"{str(idt).split('.')[-1]}/{meth} exec_wall "
+              f"{r['exec_wall'] * 1e3:9.3f} ms", flush=True)
+    print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
+          f"{ate - oracle:+.3e}), pose max |diff| vs the device executor's "
+          f"main path {diff:.3e}, {len(got)} poses, kernel launches "
+          f"{launched}", flush=True)
+    for k, c in launched.items():
+        if c <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    return launched, plan.levels[-1].caps_out
+
+
+def _dense_k2_cost(M, N):
+    """K2 at a dense root's shape, float32 (the refine path's): the fused
+    launch (V^-1 and Yd = Wd V^-1 of the dense W read as a list of M*N
+    entries, `ops/dense.entry_pairs`) against the inverse alone plus
+    `torch.einsum` (the JAX package's form), by device time (median of 10,
+    L2 flushed), beside the fused launch's bound."""
+    import torch
+    from linearsfm_tpu_torch.ops import dense, kernels
+    from linearsfm_tpu_torch.utils.flops import PEAK_F32
+    g = torch.Generator(device="cuda").manual_seed(47)
+    B = torch.randn((1, N, 3, 3), generator=g, device="cuda")
+    V = B @ B.mT + 0.1 * torch.eye(3, device="cuda")
+    Wd = torch.randn((1, M, N, 6, 3), generator=g, device="cuda")
+    W = Wd.view(1, M * N, 6, 3)
+    Wpf = dense.entry_pairs(1, M, N, torch.device("cuda"))
+    t = _device_ms({
+        "fused": lambda: kernels.inv3x3_wy(V, W, Wpf),
+        "einsum": lambda: torch.einsum("pmnif,pnfg->pmnig", Wd,
+                                       kernels.inv3x3_sym(V))})
+    bound, by = _k2_bound_ms(1, N, M * N, 4, PEAK_F32)
+    print(f"dense K2 at the stereo root (M {M}, N {N}, K {M * N}) float32: "
+          f"fused {t['fused']:.4f} ms, bound {bound:.4f} ms ({by}) = "
+          f"{bound / t['fused']:.1%}; inverse alone (K = 0) + torch.einsum "
+          f"{t['einsum']:.4f} ms; the pair list {Wpf.numel() * 8 / 2**20:.1f} "
+          f"MiB (device time, median of 10 calls, L2 flushed)", flush=True)
+    del V, Wd, W, B
+
+
+def phase_dense(datasets, single, text_dir, cli_poses):
+    """Phase 10: the dense planned executor (`core/dense_tree.py`) — both
+    2,048-map sets in process (`_dense_main_path`; `single`: phase 6-7's
+    poses), then `python3 -m linearsfm_tpu_torch.cli ... --exec dense
+    --check` on phase 8's stereo text set (direct, the CLI's default): exit
+    0, `LinearSFM Check: OK`, the pose file's ATE within 1e-6 of the
+    oracle's and its poses within 2e-6 of the device executor's CLI pose
+    file (`cli_poses`). Returns the launches of each path."""
+    import gc
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    launched = {}
+    # stereo: the bench's BENCH_EXEC=dense configuration (f32 information
+    # at the levels of at most 32 joined poses); mono with f64 information
+    # at every level, as the device executor runs it: with the f32 levels
+    # the mono set's Schur matrices turn indefinite in the f32 factor and
+    # the poses NaN, in the JAX package too (PERF.md)
+    caps = {}
+    for d, kw in (("stereo", {}), ("mono", dict(mixed_max_m=0))):
+        maps, gt, _ = datasets[d]
+        launched[f"dense {d}"], caps[d] = _dense_main_path(
+            d, maps, gt, single[d], **kw)
+    _dense_k2_cost(*caps["stereo"])
+    # the CLI process needs the card's memory this process has cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    poses, got = _cli_subprocess(
+        "dense cli stereo", os.path.join(text_dir, "stereo"), "stereo", 2048,
+        datasets["stereo"][1], text_dir, run="_dense",
+        flags=("--exec", "dense"))
+    launched["CLI dense stereo"] = got["launches"]
+    diff = max(float(np.abs(poses[k] - cli_poses["stereo"][k]).max())
+               for k in poses)
+    print(f"dense cli stereo: pose file vs the device executor's: max "
+          f"|diff| {diff:.3e} (limit 2e-6)", flush=True)
+    if not diff <= 2e-6:
+        raise AssertionError(f"dense cli stereo: pose files differ by {diff}")
+    for path, counts in launched.items():
+        for k, c in counts.items():
+            if c <= 0:
+                raise AssertionError(f"{path}: kernel {k} was never launched")
+    print(f"dense: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
     return launched
 
 
@@ -1383,10 +1564,13 @@ def main() -> int:
     k2_err, k2_times = phase_k2(shapes)
     phase_small_trees()
     paths, single = {}, {}
-    for d, (maps, gt, _) in datasets.items():
-        paths[d], single[d] = phase_main_path(d, maps, gt, shapes)
-    paths.update(phase_entry_points(datasets))
-    paths.update(phase_mesh(datasets, single))
+    for d, (maps, gt, tp) in datasets.items():
+        paths[d], single[d] = phase_main_path(d, maps, gt, tp, shapes)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text_dir:
+        launched, cli_poses = phase_entry_points(datasets, text_dir)
+        paths.update(launched)
+        paths.update(phase_mesh(datasets, single))
+        paths.update(phase_dense(datasets, single, text_dir, cli_poses))
 
     def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}

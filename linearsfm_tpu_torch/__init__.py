@@ -4,16 +4,17 @@ The PyTorch port of `linearsfm_tpu` (the JAX reference, which stays beside
 it). Module paths mirror the reference one for one (`types`, `ops/`, `core/`,
 `io/`, `native/`, `parallel/`, `utils/`, `cli`); both TPU kernels of the
 reference, `blockcoo_to_dense` and `inv3x3_sym`, are hand-written CUDA
-kernels (`csrc/`, bound in `ops/kernels.py`) on every path, both executors
-included; the second, fused with its consumer, also forms the products
-W V^-1[wf] of the Schur complement.
+kernels (`csrc/`, bound in `ops/kernels.py`) on every path, all three
+executors included; the second, fused with its consumer, also forms the
+products W V^-1[wf] of the Schur complement.
 
 Conventions that replace the reference's JAX configuration:
 
 * Dtypes are explicit at every call: the information path is float64 and the
   Schur preconditioner float32. Nothing sets a global default dtype.
 * The device is an explicit argument (`types.to_torch(..., device=...)`,
-  `DeviceTreeSolver(..., device=...)`, `TreeSolver`, `pipeline.run`);
+  `DeviceTreeSolver(..., device=...)`, `TreeSolver`, `DenseTreeSolver`,
+  `pipeline.run`);
   nothing picks one by itself. The CLI solves on `cuda` unless given
   `--cpu`, and fails rather than fall back.
 * float32 matmuls must run in full float32 on the GPU

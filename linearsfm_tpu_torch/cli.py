@@ -28,7 +28,7 @@ def _print_help():
     print("-type          Set Data Type: Monocular | Stereo")
     print("--method       Solver precision: direct | refine (f32+refinement)")
     print("--exec         Tree executor: device (resident, fastest) | host |")
-    print("               dense (experimental fused-level pipeline; not ported)")
+    print("               dense (host-planned dense block tensors; no ckpt)")
     print("--cpu          Run on the CPU (default: the CUDA GPU)")
     print("--ckpt DIR     Save per-level checkpoints to DIR")
     print("--resume       Resume from the latest checkpoint in --ckpt DIR")

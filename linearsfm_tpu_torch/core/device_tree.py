@@ -60,7 +60,7 @@ def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
     )
 
 
-class _LevelTimer:
+class LevelTimer:
     """Per-level device walls: CUDA events on a GPU (read after the final
     synchronise, so timing does not stall the pipeline), the host clock on
     the CPU, where every operation is synchronous."""
@@ -391,7 +391,7 @@ class DeviceTreeSolver:
         t2 = time.perf_counter()
         x = types.to_torch(stacked, self.device)
         t3 = time.perf_counter()
-        timer = _LevelTimer(self.device)
+        timer = LevelTimer(self.device)
         res_per_level = {}
         for li, lp in enumerate(plans[start_level:], start=start_level):
             if time_levels:

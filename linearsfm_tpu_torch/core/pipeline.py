@@ -16,6 +16,7 @@ import torch
 from .. import types
 from ..io import localmap as lio
 from ..ops import kernels
+from .dense_tree import DenseTreeSolver
 from .device_tree import DeviceTreeSolver
 from .tree import TreeSolver
 
@@ -63,16 +64,18 @@ def run(path: str, num: int, datatype: str,
 
     executor: "host" = the host-driven tree (`core/tree.TreeSolver`, per-level
     compaction on the host); "device" = the device-resident tree
-    (`core/device_tree.DeviceTreeSolver`, the CLI's default). Both take
-    checkpoint/resume. "dense" (the JAX package's experimental dense
-    executor) is not ported. `solver` replaces the executor's default
-    solver. trace_dir: write a torch.profiler trace of the solve there
-    (CPU activities, and CUDA on a GPU; Chrome-trace JSON). The pose,
-    feature and state files are written as the reference does. Logged at
-    INFO: the read time and the parser used, the solve wall, the solver's
-    host phases, the solve's kernel launches, its peak device memory (on a
-    GPU) and the write time. The direct mono solve sums in a fixed order
-    (`deterministic`).
+    (`core/device_tree.DeviceTreeSolver`, the CLI's default); "dense" = the
+    host-planned dense executor (`core/dense_tree.DenseTreeSolver`: dense
+    block tensors per map, every id and slot planned on the host). The host
+    and device executors take checkpoint/resume; with the dense executor
+    `ckpt_dir` and `resume` are logged as ignored. `solver` replaces the
+    executor's default solver. trace_dir: write a torch.profiler trace of
+    the solve there (CPU activities, and CUDA on a GPU; Chrome-trace JSON).
+    The pose, feature and state files are written as the reference does.
+    Logged at INFO: the read time and the parser used, the solve wall, the
+    solver's host phases, the solve's kernel launches, its peak device
+    memory (on a GPU) and the write time. The direct mono solve sums in a
+    fixed order (`deterministic`).
     """
     device = torch.device(device)
     if solver is None:
@@ -83,8 +86,8 @@ def run(path: str, num: int, datatype: str,
             solver = TreeSolver(datatype, method=method, progress=progress,
                                 device=device)
         elif executor == "dense":
-            raise NotImplementedError(
-                "executor 'dense' is not ported (ROADMAP queue 1 item 16)")
+            solver = DenseTreeSolver(datatype, method=method,
+                                     progress=progress, device=device)
         else:
             raise ValueError(f"unknown executor {executor!r}")
     t0 = time.perf_counter()
@@ -96,7 +99,12 @@ def run(path: str, num: int, datatype: str,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    kw = dict(metrics=metrics, ckpt_dir=ckpt_dir, resume=resume)
+    kw = dict(metrics=metrics)
+    if isinstance(solver, (TreeSolver, DeviceTreeSolver)):
+        kw.update(ckpt_dir=ckpt_dir, resume=resume)
+    elif ckpt_dir or resume:
+        log.warning("checkpoint/resume requires the host or device executor; "
+                    "ignoring")
     # on an H100 the direct mono solve's atomic sums moved its poses by up
     # to 7.4e-6 from run to run, and summing in a fixed order cost it no
     # measurable wall; stereo moved 2e-13 and would pay 11-17% (PERF.md §6)

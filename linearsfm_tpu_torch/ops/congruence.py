@@ -109,6 +109,16 @@ def _jacs_stereo(new_poses, new_feats, q):
     return Dp, Cp, Df, Cf, Dinv
 
 
+def stereo_jacobians(new_poses, new_feats, r_slot):
+    """The J blocks (Dp, Cp, Df, Cf) of a stereo transform whose old
+    reference pose sits at `r_slot` [P] of the transformed state: the
+    reference row is x_old[r] = invpose(q), so Dp[r] = d invpose/dq and
+    Cp[r] = 0."""
+    q = take1(new_poses, r_slot)
+    Dp, Cp, Df, Cf, Dinv = _jacs_stereo(new_poses, new_feats, q)
+    return put1(Dp, r_slot, Dinv), put1(Cp, r_slot, 0.0), Df, Cf
+
+
 def transform_map_stereo(lm: types.LocalMap, new_ref_id: torch.Tensor,
                          info_dtype: torch.dtype | None = None
                          ) -> types.LocalMap:
@@ -126,12 +136,7 @@ def transform_map_stereo(lm: types.LocalMap, new_ref_id: torch.Tensor,
 
     # the slot that held new_ref now holds the old reference pose
     r_slot = types.first_true(new_ids == old_ref_id[:, None])
-    q = take1(new_poses, r_slot)
-
-    Dp, Cp, Df, Cf, Dinv = _jacs_stereo(new_poses, new_feats, q)
-    # reference row: x_old[r] = invpose(q), own-block derivative d invpose/dq
-    Dp = put1(Dp, r_slot, Dinv)
-    Cp = put1(Cp, r_slot, 0.0)
+    Dp, Cp, Df, Cf = stereo_jacobians(new_poses, new_feats, r_slot)
 
     idt = info_dtype or lm.U.dtype
     em = congruence_emit(lm.U.to(idt), lm.Uij, lm.W.to(idt), lm.Wpf,
@@ -175,6 +180,49 @@ def _jacs_mono(new_poses, new_feats, q, s, fix):
     return Dp, Cp, C2p3, Df, Cf, C2f3
 
 
+def mono_jacobians(new_poses, new_feats, r_slot, s_slot, p1, p2, old_fix,
+                   new_fix):
+    """The J blocks (Dp, Cp, C2p, Df, Cf, C2f) of a mono transform, per
+    lane: r_slot/s_slot [P] hold the old reference/scale pose, p1/p2 [P]
+    the new ones, in the transformed state; old_fix/new_fix [P] the pinned
+    coordinates. The couplings are folded at the old gauge rows and the
+    new gauge coordinates projected out."""
+    dev = new_poses.device
+    q = take1(new_poses, r_slot)
+    s = take1(new_poses, s_slot)[:, 0:3]
+    Dp, Cp, C2p3, Df, Cf, C2f3 = _jacs_mono(new_poses, new_feats, q, s,
+                                            old_fix)
+    # embed d/ds (3 columns) into 6-wide coupling blocks
+    C2p = torch.nn.functional.pad(C2p3, (0, 3))
+    C2f = torch.nn.functional.pad(C2f3, (0, 3))
+
+    # folds at the old gauge rows: D[r] += C[r], C[r] = 0; same for s
+    Dp = put1(Dp, r_slot, take1(Dp, r_slot) + take1(Cp, r_slot))
+    Cp = put1(Cp, r_slot, 0.0)
+    Dp = put1(Dp, s_slot, take1(Dp, s_slot) + take1(C2p, s_slot))
+    C2p = put1(C2p, s_slot, 0.0)
+
+    # Gauge-conditioning projection: zero every J column of a NEW gauge
+    # coordinate (the new ref block, the new scap's pinned coordinate), so
+    # the transformed information has exactly zero rows/cols there and the
+    # solver's 7-row deletion is exact. The slot conditions hold per lane.
+    colfix = torch.arange(6, device=dev) == new_fix[:, None]      # [P, 6]
+    Dp = put1(Dp, p1, 0.0)
+    Dp = put1(Dp, p2, torch.where(colfix[:, None, :], 0.0, take1(Dp, p2)))
+
+    def kill(C, lane_cond, fix_col_only):
+        mask = lane_cond[:, None, None, None]
+        if fix_col_only:
+            mask = mask & colfix[:, None, None, :]
+        return torch.where(mask, 0.0, C)
+
+    Cp = kill(kill(Cp, r_slot == p2, True), r_slot == p1, False)
+    Cf = kill(kill(Cf, r_slot == p2, True), r_slot == p1, False)
+    C2p = kill(kill(C2p, s_slot == p2, True), s_slot == p1, False)
+    C2f = kill(kill(C2f, s_slot == p2, True), s_slot == p1, False)
+    return Dp, Cp, C2p, Df, Cf, C2f
+
+
 def transform_map_mono(lm: types.LocalMap, new_ref_id: torch.Tensor,
                        new_scap_id: torch.Tensor, new_fix: torch.Tensor,
                        info_dtype: torch.dtype | None = None
@@ -193,41 +241,11 @@ def transform_map_mono(lm: types.LocalMap, new_ref_id: torch.Tensor,
     # the old gauge blocks, in the same slots (mono keeps every pose id)
     r_slot = types.first_true(lm.pose_ids == old.ref[:, None])
     s_slot = types.first_true(lm.pose_ids == old.scap[:, None])
-    q = take1(new_poses, r_slot)
-    s = take1(new_poses, s_slot)[:, 0:3]
-
-    Dp, Cp, C2p3, Df, Cf, C2f3 = _jacs_mono(new_poses, new_feats, q, s,
-                                            old.fix)
-    # embed d/ds (3 columns) into 6-wide coupling blocks
-    C2p = torch.nn.functional.pad(C2p3, (0, 3))
-    C2f = torch.nn.functional.pad(C2f3, (0, 3))
-
-    # folds at the old gauge rows: D[r] += C[r], C[r] = 0; same for s
-    Dp = put1(Dp, r_slot, take1(Dp, r_slot) + take1(Cp, r_slot))
-    Cp = put1(Cp, r_slot, 0.0)
-    Dp = put1(Dp, s_slot, take1(Dp, s_slot) + take1(C2p, s_slot))
-    C2p = put1(C2p, s_slot, 0.0)
-
-    # Gauge-conditioning projection: zero every J column of a NEW gauge
-    # coordinate (the new ref block, the new scap's pinned coordinate), so
-    # the transformed information has exactly zero rows/cols there and the
-    # solver's 7-row deletion is exact. The slot conditions hold per lane.
     p1 = types.first_true(lm.pose_ids == new_ref_id[:, None])
     p2 = types.first_true(lm.pose_ids == new_scap_id[:, None])
-    colfix = torch.arange(6, device=dev) == new_fix[:, None]      # [P, 6]
-    Dp = put1(Dp, p1, 0.0)
-    Dp = put1(Dp, p2, torch.where(colfix[:, None, :], 0.0, take1(Dp, p2)))
-
-    def kill(C, lane_cond, fix_col_only):
-        mask = lane_cond[:, None, None, None]
-        if fix_col_only:
-            mask = mask & colfix[:, None, None, :]
-        return torch.where(mask, 0.0, C)
-
-    Cp = kill(kill(Cp, r_slot == p2, True), r_slot == p1, False)
-    Cf = kill(kill(Cf, r_slot == p2, True), r_slot == p1, False)
-    C2p = kill(kill(C2p, s_slot == p2, True), s_slot == p1, False)
-    C2f = kill(kill(C2f, s_slot == p2, True), s_slot == p1, False)
+    Dp, Cp, C2p, Df, Cf, C2f = mono_jacobians(new_poses, new_feats, r_slot,
+                                              s_slot, p1, p2, old.fix,
+                                              new_fix)
 
     idt = info_dtype or lm.U.dtype
     em = congruence_emit(lm.U.to(idt), lm.Uij, lm.W.to(idt), lm.Wpf,

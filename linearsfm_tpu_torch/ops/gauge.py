@@ -53,6 +53,14 @@ def stereo_batched(poses: torch.Tensor, feats: torch.Tensor, g: torch.Tensor):
     return new_poses, new_feats, inv
 
 
+def stereo_state_at(poses, feats, slot):
+    """The stereo re-expression of each lane about the pose at `slot` [P]:
+    (poses', feats'), with invpose(g) written at that slot."""
+    g = segment.take1(poses, slot)
+    new_poses, new_feats, inv = stereo_batched(poses, feats, g)
+    return segment.put1(new_poses, slot, inv), new_feats
+
+
 def transform_state_stereo(pose_ids, poses, feats, new_ref_id, old_ref_id):
     """Re-express every slot of each lane in the frame of pose `new_ref_id`.
 
@@ -61,9 +69,7 @@ def transform_state_stereo(pose_ids, poses, feats, new_ref_id, old_ref_id):
     `new_ref_id` is re-tagged `old_ref_id` and holds invpose(g).
     """
     slot = first_true(pose_ids == new_ref_id[:, None])
-    g = segment.take1(poses, slot)
-    new_poses, new_feats, inv = stereo_batched(poses, feats, g)
-    new_poses = segment.put1(new_poses, slot, inv)
+    new_poses, new_feats = stereo_state_at(poses, feats, slot)
     new_ids = segment.put1(pose_ids, slot, old_ref_id)
     return new_ids, new_poses, new_feats
 
@@ -110,6 +116,13 @@ def transform_state_mono(pose_ids, poses, feats, new_ref_id, new_scap_id,
     """
     slot_r = first_true(pose_ids == new_ref_id[:, None])
     slot_s = first_true(pose_ids == new_scap_id[:, None])
+    return mono_state_at(poses, feats, slot_r, slot_s, new_fix)
+
+
+def mono_state_at(poses, feats, slot_r, slot_s, new_fix):
+    """The mono re-expression of each lane about the new reference at
+    `slot_r` and scale pose at `slot_s` ([P] each): (poses', feats', sign),
+    the gauge pins written (see transform_state_mono)."""
     g = segment.take1(poses, slot_r)
     s = segment.take1(poses, slot_s)[:, 0:3]
     new_poses, new_feats, sign = mono_batched(poses, feats, g, s, new_fix)

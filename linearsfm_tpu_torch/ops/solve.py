@@ -12,14 +12,14 @@ from __future__ import annotations
 import torch
 
 
-def _factor(S: torch.Tensor) -> torch.Tensor:
+def factor(S: torch.Tensor) -> torch.Tensor:
     """Cholesky factors of every lane of S [P, d, d]; NaN on a lane whose
     matrix is not positive definite."""
     L, info = torch.linalg.cholesky_ex(S)
     return torch.where((info != 0)[:, None, None], torch.nan, L)
 
 
-def _solve_factored(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def solve_factored(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """x [P, d] with L L^T x = rhs, as two triangular solves.
     `torch.cholesky_solve` is not used here: on the H100 it fails with
     "CUDA error: invalid argument" on a float64 batch of two 6,144-wide
@@ -43,7 +43,7 @@ def cholesky_solve(S: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
     """Dense Cholesky solve in the input dtype; a lane whose matrix is not
     positive definite returns NaN (the reference's NaN factor) instead of
     raising."""
-    return _solve_factored(_factor(S), E)
+    return solve_factored(factor(S), E)
 
 
 def cholesky_solve_refine(S: torch.Tensor, E: torch.Tensor,
@@ -54,10 +54,10 @@ def cholesky_solve_refine(S: torch.Tensor, E: torch.Tensor,
     adds the f32 solve of the residual ``r = E - S x``, computed against the
     (float64) operands, and multiplies the error by about cond(S) eps_f32.
     """
-    L = _factor(S.to(torch.float32))
+    L = factor(S.to(torch.float32))
 
     def solve32(rhs):
-        return _solve_factored(L, rhs.to(torch.float32)).to(S.dtype)
+        return solve_factored(L, rhs.to(torch.float32)).to(S.dtype)
 
     x = solve32(E)
     for _ in range(iters):

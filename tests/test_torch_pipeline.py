@@ -268,9 +268,11 @@ def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
 def test_cli_arguments_and_device(tmp_path, capsys):
     """The reference CLI's messages and exit codes; without --cpu and
     without a CUDA device the CLI stops (exit 1) and does not solve on the
-    CPU; the dense executor is not ported."""
+    CPU; the help offers the dense executor, and an unknown executor is
+    refused."""
     assert tcli.main(["-help"]) == 0
-    assert "-path" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "-path" in out and "dense" in out and "not ported" not in out
     assert tcli.main(["-num", "2", "-type", "Stereo"]) == 1
     assert "Please Input Right File Path" in capsys.readouterr().out
     assert tcli.main(["-path", "x", "-num", "2", "-type", "Bad"]) == 1
@@ -281,8 +283,8 @@ def test_cli_arguments_and_device(tmp_path, capsys):
         assert tcli.main(["-path", str(tmp_path), "-num", "2", "-type",
                           "Stereo"]) == 1
         assert "no CUDA device" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        tpipeline.run(str(tmp_path), 2, "stereo", executor="dense",
+    with pytest.raises(ValueError, match="unknown executor"):
+        tpipeline.run(str(tmp_path), 2, "stereo", executor="fused",
                       device="cpu")
 
 
@@ -395,9 +397,12 @@ def test_entry_modules_import_no_jax():
         "import sys\n"
         "import linearsfm_tpu_torch.cli, linearsfm_tpu_torch.version\n"
         "from linearsfm_tpu_torch.core import pipeline, tree\n"
+        "from linearsfm_tpu_torch.core import dense_tree, layout\n"
         "from linearsfm_tpu_torch.io import localmap\n"
+        "from linearsfm_tpu_torch.ops import dense\n"
         "from linearsfm_tpu_torch.parallel import level\n"
-        "from linearsfm_tpu_torch.utils import checkpoint, debug\n"
+        "from linearsfm_tpu_torch.utils import checkpoint, debug, flops\n"
+        "from linearsfm_tpu_torch.tools import profile_dense_tree\n"
         "from linearsfm_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'linearsfm_tpu' or m.startswith('linearsfm_tpu.')]\n"
