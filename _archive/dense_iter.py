@@ -30,7 +30,8 @@ for d, (maps, gt, tp) in datasets.items():
     _, single[d] = cs.phase_main_path(d, maps, gt, tp, shapes)
 with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
     os.makedirs(os.path.join(tmp, "stereo"))
-    cs._write_dataset(datasets["stereo"][0], "stereo", os.path.join(tmp, "stereo"))
+    from linearsfm_tpu_torch.io import localmap as lio
+    lio.write_dataset(datasets["stereo"][0], os.path.join(tmp, "stereo"))
     cli = {}
     cli["stereo"], _ = cs._cli_subprocess("entry cli stereo", os.path.join(tmp, "stereo"), "stereo", 2048, datasets["stereo"][1], tmp)
     print(cs.phase_dense(datasets, single, tmp, cli), flush=True)

@@ -95,17 +95,35 @@ Phases, each printing its lines; any failure exits non-zero:
    (wall, maps_joined/s, host phases, per-level CUDA-event walls, peak
    memory, launches, ATE beside the oracle's, pose max |diff| against
    phases 6-7), failing unless every pose id is there and finite and K1
-   and K2 launched; K2 at the dense stereo root's shape, fused against the
-   inverse alone + `torch.einsum`; (b) `python3 -m linearsfm_tpu_torch.cli
-   ... --exec dense --check` on phase 8's stereo text set (direct): exit
-   0, `LinearSFM Check: OK`, pose-file ATE within 1e-6 of the oracle's and
-   poses within 2e-6 of the device executor's CLI pose file.
+   and K2 launched; level 0's first K1 call (A of every map, [2048, 96,
+   96]) timed alone on its own inputs as phase 3 times K1; K2 at the dense
+   stereo root's shape, fused against the inverse alone + `torch.einsum`
+   and the plain version; (b) `python3 -m linearsfm_tpu_torch.cli ...
+   --exec dense --check` on phase 8's stereo text set (direct): exit 0,
+   `LinearSFM Check: OK`, pose-file ATE within 1e-6 of the oracle's and
+   poses within 2e-6 of the device executor's CLI pose file;
+11. the tools and scale: (a) `linearsfm_tpu_torch.tools.compare_ate`
+   through its `main` at 512 covis maps (seed 7, noise 0.005, device
+   executor, refine), stereo then mono, against the oracle binary
+   `tools/oracle/linearsfm_oracle` run live on the same files: the oracle
+   must run, every pose id be there and finite, the ATE be within 1e-6 of
+   that run's oracle ATE and the pose files within 1e-5; (b) the stereo
+   3,499-map covis set (seed 7, noise 0.005, covis 6 / 6) through phase
+   6's checks against `ate_3499_covis.json`'s oracle ATE; (c) the
+   profiling tools on phases 6-7's sets: `profile_level_parts.level_parts`
+   at every level of both (T / TJ / full ms), `profile_device_tree.profile`
+   and `bench_root.root_parts` on stereo, then `microbench` at its defaults
+   and `profile_tree` at 512 stereo maps through their `main`: each must
+   exit 0 and print its labelled lines, and K1 and K2 must launch in
+   `bench_root`.
 
 The kernel launch counts are set to 0 just before each main path's timed
-run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a) and read just after
-it; the warm run checks that K2 ran at the shapes phase 4 timed. The CLI runs report their own counts (pipeline log); the
-host run's are set to 0 before `cli.main` and read after it. Every path
-must launch K1 and K2. The line before the last is the kernel record (per kernel:
+run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
+after it, and likewise around each `compare_ate` run and `bench_root`
+(phase 11); the warm run checks that K2 ran at the shapes phase 4 timed.
+The CLI runs report their own counts (pipeline log); the host run's are
+set to 0 before `cli.main` and read after it. Every path must launch K1
+and K2. The line before the last is the kernel record (per kernel:
 launches, max error, kernel, plain, bound and library times and what the
 library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
 float32); the last line is {"ok": true, "device": {...}}.
@@ -113,6 +131,7 @@ float32); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -124,6 +143,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 # oracle ATEs of the 2,048-map covis sets, seed 7 (ate_2048_covis*.json)
 ORACLE_ATE_2048 = {"stereo": 0.009758730, "mono": 0.014352172}
+# oracle ATE of the 3,499-map stereo covis set, seed 7 (ate_3499_covis.json)
+ORACLE_ATE_3499 = 0.01174630460707857
 
 
 def _loop_ms(fn, reps):
@@ -231,6 +252,51 @@ def _k1_bound_ms(P, M, N, R, C, esz, nnz):
     return (out + entries) / HBM_BYTES_PER_S * 1e3
 
 
+def _k1_time(name, kernel, wrapper, plain, library, bound):
+    """K1's times at one shape, printed on one line: CUDA events over loops
+    of 10 calls, in the order plain, kernel, wrapper, library, kernel,
+    plain (the kernel and plain figures the lesser of their two rounds),
+    then the kernel alone by device time, which no host pacing of the
+    loops can lengthen."""
+    reps = 10
+    p1 = _loop_ms(plain, reps)
+    k1 = _loop_ms(kernel, reps)
+    w = _loop_ms(wrapper, reps)
+    lib = _loop_ms(library, reps)
+    k2 = _loop_ms(kernel, reps)
+    p2 = _loop_ms(plain, reps)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    dev = _device_ms({"kernel": kernel})["kernel"]
+    print(f"k1 time {name}: kernel {k1:.4f}/{k2:.4f} ms on a prebuilt "
+          f"plan (device time {dev:.4f} ms), wrapper {w:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes) = {bound / ms:.1%} of the kernel's "
+          f"time, {bound / w:.1%} of the wrapper's; library (zeros + "
+          f"index_put_) {lib:.4f} ms; plain {p1:.3f}/{p2:.3f} ms "
+          f"(loops of {reps})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, wrapper_ms=w, library_ms=lib,
+                bound_ms=bound, device_ms=dev)
+
+
+def _k1_list_fns(rows, cols, vals, M, N):
+    """`_k1_time`'s arguments for one whole list: the kernel on a prebuilt
+    plan, the wrapper (plan + launch), the plain version, the library
+    yardstick on element indices built beforehand, and the bound of the
+    list's valid entries."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    plan = kernels.coo_plan(rows, cols, M, N)
+    shape, idx, v = _library_inputs(rows, cols, vals, M, N)
+    P, _, R, C = vals.shape
+    return (lambda: kernels.blockcoo_to_dense_planned(plan, vals),
+            lambda: kernels.blockcoo_to_dense(rows, cols, vals, M, N),
+            lambda: kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N),
+            lambda: torch.zeros(shape, device="cuda",
+                                dtype=vals.dtype).index_put_(
+                idx, v, accumulate=True),
+            _k1_bound_ms(P, M, N, R, C, vals.element_size(),
+                         int(idx[0].numel()) // (R * C)))
+
+
 def phase_kernels():
     import torch
     from linearsfm_tpu_torch.ops import kernels
@@ -284,29 +350,6 @@ def phase_kernels():
         nonlocal max_err
         max_err = max(max_err, _k1_check(name, got, ref, dup))
 
-    def timing(name, kernel, wrapper, plain, library, bound):
-        # alternate plain, kernel, kernel, plain (wrapper and yardstick
-        # between the two kernel rounds)
-        reps = 10
-        p1 = _loop_ms(plain, reps)
-        k1 = _loop_ms(kernel, reps)
-        w = _loop_ms(wrapper, reps)
-        lib = _loop_ms(library, reps)
-        k2 = _loop_ms(kernel, reps)
-        p2 = _loop_ms(plain, reps)
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        # the kernel alone again by device time, which no host pacing
-        # of the loop above can lengthen
-        dev = _device_ms({"kernel": kernel})["kernel"]
-        times[name] = dict(ms=ms, plain_ms=plain_ms, wrapper_ms=w,
-                           library_ms=lib, bound_ms=bound, device_ms=dev)
-        print(f"k1 time {name}: kernel {k1:.4f}/{k2:.4f} ms on a prebuilt "
-              f"plan (device time {dev:.4f} ms), wrapper {w:.4f} ms, bound "
-              f"{bound:.4f} ms (bytes) = {bound / ms:.1%} of the kernel's "
-              f"time, {bound / w:.1%} of the wrapper's; library (zeros + "
-              f"index_put_) {lib:.4f} ms; plain {p1:.3f}/{p2:.3f} ms "
-              f"(loops of {reps})", flush=True)
-
     def dtypes(name, vals):
         """(tag, values) in the case's own dtype, and in float64 for the
         main path's lists."""
@@ -330,22 +373,9 @@ def phase_kernels():
                 check(f"{tag} (plan)", got, ref, dup)
                 del got, plan
             del ref
-            if name not in timed:
-                continue
-            plan = kernels.coo_plan(rows, cols, M, N)
-            shape, idx, v = _library_inputs(rows, cols, vals, M, N)
-            P, _, R, C = vals.shape
-            timing(tag,
-                   lambda: kernels.blockcoo_to_dense_planned(plan, vals),
-                   lambda: kernels.blockcoo_to_dense(rows, cols, vals, M, N),
-                   lambda: kernels.blockcoo_to_dense_ref(rows, cols, vals, M,
-                                                         N),
-                   lambda: torch.zeros(shape, device="cuda",
-                                       dtype=vals.dtype).index_put_(
-                       idx, v, accumulate=True),
-                   _k1_bound_ms(P, M, N, R, C, vals.element_size(),
-                                int(idx[0].numel()) // (R * C)))
-            del plan, idx, v
+            if name in timed:
+                times[tag] = _k1_time(tag, *_k1_list_fns(rows, cols, vals,
+                                                         M, N))
 
     for name, ((rows, cols, vals0, M, N), wins) in windowed.items():
         plan = kernels.coo_plan(rows, cols, M, N)
@@ -370,18 +400,19 @@ def phase_kernels():
             shape, idx, v = _library_inputs(srows, scols, vals, M, width)
             P, _, R, C = vals.shape
             # the wrapper: a plan of the stripe's own list and one launch
-            timing(tag,
-                   lambda: kernels.blockcoo_to_dense_planned(plan, vals, lo,
-                                                             width),
-                   lambda: kernels.blockcoo_to_dense(srows, scols, vals, M,
-                                                     width),
-                   lambda: kernels.blockcoo_to_dense_ref(srows, scols, vals,
-                                                         M, width),
-                   lambda: torch.zeros(shape, device="cuda",
-                                       dtype=vals.dtype).index_put_(
-                       idx, v, accumulate=True),
-                   _k1_bound_ms(P, M, width, R, C, vals.element_size(),
-                                int(idx[0].numel()) // (R * C)))
+            times[tag] = _k1_time(
+                tag,
+                lambda: kernels.blockcoo_to_dense_planned(plan, vals, lo,
+                                                          width),
+                lambda: kernels.blockcoo_to_dense(srows, scols, vals, M,
+                                                  width),
+                lambda: kernels.blockcoo_to_dense_ref(srows, scols, vals, M,
+                                                      width),
+                lambda: torch.zeros(shape, device="cuda",
+                                    dtype=vals.dtype).index_put_(
+                    idx, v, accumulate=True),
+                _k1_bound_ms(P, M, width, R, C, vals.element_size(),
+                             int(idx[0].numel()) // (R * C)))
             del idx, v
         del plan
     return max_err, times
@@ -393,38 +424,60 @@ def _device_ms(fns, reps=10):
     a torch.profiler trace, median of `reps` calls (after two warm-up calls
     each; the calls of the functions alternate). Before each call a 256 MB
     fill, outside the measured range, evicts the 50 MB L2, so every call
-    reads its inputs from HBM."""
+    reads its inputs from HBM. Late in a long process the profiler drops
+    the device records of a session's first launches (a range would read
+    as zero or short), so each session opens with 64 small fills outside
+    the ranges and profiles `reps` + 10 calls of each function; a call
+    counts only if every launch, fill and copy issued inside its range has
+    its device record, and the median is of the last `reps` calls that
+    count. If fewer count, the calls are profiled again, at most three
+    times in all; then it fails."""
     import statistics
     import torch
     from linearsfm_tpu_torch.ops import kernels
-    from linearsfm_tpu_torch.tools.profile_k1 import device_us_by_range
+    from linearsfm_tpu_torch.tools.profile_k1 import device_events_by_range
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    pad = torch.empty(1024, dtype=torch.float32, device="cuda")
     for fn in fns.values():
         fn()
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            for name, fn in fns.items():
-                flush.zero_()
-                with torch.profiler.record_function(f"time/{name}"):
-                    fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        per = device_us_by_range(trace, "time/")
-    out = {}
-    for name in fns:
-        us = per.get(f"time/{name}", [])
-        if len(us) != reps:
-            raise AssertionError(f"device time of {name}: {len(us)} of "
-                                 f"{reps} calls in the trace")
-        out[name] = statistics.median(us) / 1e3
-    return out
+    attempts = 3
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(64):
+                pad.zero_()
+            torch.cuda.synchronize()
+            for _ in range(reps + 10):
+                for name, fn in fns.items():
+                    flush.zero_()
+                    with torch.profiler.record_function(f"time/{name}"):
+                        fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            per = device_events_by_range(trace, "time/")
+        whole = {name: [us for us, n, k in per.get(f"time/{name}", [])
+                        if n == k and n] for name in fns}
+        lost = {name: [(n, k) for _, n, k in per.get(f"time/{name}", [])
+                       if n != k or not n] for name in fns}
+        if all(len(us) >= reps for us in whole.values()):
+            if any(lost.values()):
+                print(f"device time: calls left out, the profiler having "
+                      f"lost their device records ((device events, "
+                      f"launches) of each): {lost}", flush=True)
+            return {name: statistics.median(us[-reps:]) / 1e3
+                    for name, us in whole.items()}
+        print(f"device time, attempt {attempt} of {attempts}: the profiler "
+              f"lost device records; (device events, launches) per call: "
+              f"{lost}", flush=True)
+    raise AssertionError(f"device time of "
+                         f"{sorted(n for n, c in lost.items() if c)}: device "
+                         f"records lost in {attempts} profiled runs")
 
 
 def _inv3x3_cases(dtype):
@@ -671,13 +724,20 @@ def make_dataset(datatype):
     return maps, poses_gt, tp
 
 
-def phase_main_path(datatype, maps, poses_gt, tp, shapes):
-    """One warm and one timed run of the 2,048-map covis set (`tp`: its
-    tree plan); returns the kernel launch counts of the timed run and its
-    poses by id. The warm run's fused K2 launches must have the shapes
-    phase 4 timed (`shapes`) at level 1 and the root. Also prints the
-    `utils/flops` model's f32 rate of the timed run (a model figure: the
-    model's per-block constants are not calibrated on the GPU)."""
+def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
+                    oracle=None, tag=None, in_situ=False):
+    """One warm and one timed run of the `n`-map covis set (`tp`: its tree
+    plan, or None); returns the kernel launch counts of the timed run and
+    its poses by id. Fails unless every pose id is there and finite, the
+    ATE is within 1e-6 of `oracle` (default: the 2,048-map oracle's), every
+    level's res_max is <= 1e-10 and K1 and K2 launched. Given `shapes`, the
+    warm run's fused K2 launches must have the shapes phase 4 timed at
+    level 1 and the root. With `in_situ`, every K1 and K2 call of the warm
+    run is held against its plain version on its own inputs (`_K1InSitu`,
+    `_K2InSitu`), those of the root included. Given `tp`, it also prints
+    the `utils/flops`
+    model's f32 rate of the timed run (a model figure: the model's
+    per-block constants are not calibrated on the GPU)."""
     import numpy as np
     import torch
     from linearsfm_tpu_torch import types
@@ -686,8 +746,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes):
     from linearsfm_tpu_torch.utils import flops
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
-    n, tag = 2048, f"main {datatype}"
-    oracle = ORACLE_ATE_2048[datatype]
+    tag = tag or f"main {datatype}"
+    oracle = ORACLE_ATE_2048[datatype] if oracle is None else oracle
     solver = DeviceTreeSolver(datatype, method="refine", device="cuda")
     fused, seen = kernels.inv3x3_wy, []
 
@@ -695,18 +755,29 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes):
         seen.append((V.shape[0], V.shape[1], W.shape[1]))
         return fused(V, W, Wpf)
     kernels.inv3x3_wy = record
+    held = contextlib.ExitStack()
     t0 = time.perf_counter()
     try:
-        solver.run(maps)
+        with held:
+            if in_situ:
+                k1, k2 = (held.enter_context(_K1InSitu()),
+                          held.enter_context(_K2InSitu()))
+            solver.run(maps)
     finally:
         kernels.inv3x3_wy = fused
     print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s "
-          f"{solver._last_timing}; fused K2 shapes (P, N, K) by level "
-          f"{seen}", flush=True)
-    want = [shapes[f"{datatype} level1"], shapes[f"{datatype} root"]]
-    if not seen or [seen[0], seen[-1]] != want:
-        raise AssertionError(f"{tag}: fused K2 ran at {seen}, phase 4 timed "
-                             f"{want}")
+          f"{solver._last_timing}{' (in-situ checks included)' * in_situ}; "
+          f"fused K2 shapes (P, N, K) by level {seen}", flush=True)
+    if in_situ:
+        _held_at_root(f"{tag} warm run", k1, k2)
+        if k2.shapes != seen:
+            raise AssertionError(f"{tag}: K2 held at {k2.shapes}, launched "
+                                 f"at {seen}")
+    if shapes is not None:
+        want = [shapes[f"{datatype} level1"], shapes[f"{datatype} root"]]
+        if not seen or [seen[0], seen[-1]] != want:
+            raise AssertionError(f"{tag}: fused K2 ran at {seen}, phase 4 "
+                                 f"timed {want}")
 
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.launches:
@@ -745,16 +816,17 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes):
     print(f"{tag}: ATE {ate:.9f} (oracle {oracle:.9f}, diff "
           f"{ate - oracle:+.3e}), res_max {res_max:.3e}, {len(err)} poses, "
           f"kernel launches {launched}", flush=True)
-    model = flops.mfu(tp, datatype, lambda m: (solver.top_iters
-                                               if m >= solver.top_min_m
-                                               else solver.refine_iters),
-                      wall)
-    print(f"{tag}: model figure (utils/flops, uncalibrated constants, PCG "
-          f"sweeps at their caps): {model['f32_flops']:.4e} f32 FLOP in "
-          f"{wall:.4f} s = {model['achieved_f32_tflops']:.4f} TFLOP/s = "
-          f"{model['mfu_f32']:.4%} of the {flops.PEAK_F32 / 1e12:g} TFLOP/s "
-          f"f32 peak; {model['f64_flops']:.4e} f64 FLOP, "
-          f"{model['gbytes']:.3f} GB modelled traffic", flush=True)
+    if tp is not None:
+        model = flops.mfu(tp, datatype, lambda m: (solver.top_iters
+                                                   if m >= solver.top_min_m
+                                                   else solver.refine_iters),
+                          wall)
+        print(f"{tag}: model figure (utils/flops, uncalibrated constants, "
+              f"PCG sweeps at their caps): {model['f32_flops']:.4e} f32 FLOP "
+              f"in {wall:.4f} s = {model['achieved_f32_tflops']:.4f} TFLOP/s "
+              f"= {model['mfu_f32']:.4%} of the {flops.PEAK_F32 / 1e12:g} "
+              f"TFLOP/s f32 peak; {model['f64_flops']:.4e} f64 FLOP, "
+              f"{model['gbytes']:.3f} GB modelled traffic", flush=True)
     if not abs(ate - oracle) <= 1e-6:
         raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
     if not res_max <= 1e-10:
@@ -763,18 +835,6 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes):
         if c <= 0:
             raise AssertionError(f"{tag}: kernel {k} was never launched")
     return launched, _poses_by_id(out)
-
-
-def _write_dataset(maps, datatype, out_dir):
-    """The maps as localmap_<i>.txt with the port's writer (the synth
-    package's own writer goes through the JAX package)."""
-    from linearsfm_tpu_torch.io import localmap as lio
-    for i, m in enumerate(maps):
-        lio.write_local_map(
-            os.path.join(out_dir, f"localmap_{i + 1}.txt"),
-            dict(pose_ids=m.pose_ids, poses=m.poses, feat_ids=m.feat_ids,
-                 feats=m.feats, U=m.U, Uij=m.Uij, W=m.W, Wpf=m.Wpf, V=m.V,
-                 gauge=m.gauge), datatype)
 
 
 def _pose_file_check(tag, path, datatype, n, poses_gt):
@@ -851,22 +911,28 @@ class _K1InSitu:
     (`schur.densify_blocks`, `schur.densify_planned`) is held against the
     plain version on its own inputs, by the rule of phase 3 (`_k1_check`):
     the main path's own shapes and dtypes. Counts the calls by dtype and
-    keeps the largest error and the largest output."""
+    those on one lane (`root`: a tree's root join, whose outputs are [1,
+    6M, w]), and keeps the largest error, the largest output and the first
+    call's inputs (rows, cols, vals, M, N) as `first`."""
 
     def __enter__(self):
         from linearsfm_tpu_torch.ops import kernels, schur
         self.calls, self.max_err, self.largest = {}, 0.0, ()
+        self.first, self.root = None, 0
         self._saved = schur.densify_blocks, schur.densify_planned
         blocks, planned = self._saved
 
         def held(got, rows, cols, vals, M, N):
             import torch
+            if self.first is None:
+                self.first = (rows, cols, vals, M, N)
             ref = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
             torch.cuda.synchronize()
             dn = str(vals.dtype).split(".")[-1]
             err = _k1_check(f"in situ {dn} {list(got.shape)}", got, ref,
                             _has_duplicates(rows, cols, M, N), quiet=True)
             self.calls[dn] = self.calls.get(dn, 0) + 1
+            self.root += got.dim() == 3 and got.shape[0] == 1
             self.max_err = max(self.max_err, err)
             if got.numel() > math.prod(self.largest):
                 self.largest = tuple(got.shape)
@@ -894,7 +960,8 @@ class _K1InSitu:
         not that many float64 calls) was seen."""
         print(f"{tag}: every K1 call held against the plain version in situ "
               f"(exact, or rtol 1e-6 with duplicates): calls by dtype "
-              f"{self.calls}, largest output {list(self.largest)}, "
+              f"{self.calls}, {self.root} on one lane, largest output "
+              f"{list(self.largest)}, "
               f"max_abs_err {self.max_err:.3e} ok", flush=True)
         if not self.calls or (want is not None
                               and self.calls.get("float64") != want):
@@ -986,6 +1053,7 @@ def phase_entry_points(datasets, tmp):
     from linearsfm_tpu_torch import cli, native
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.core.tree import TreeSolver
+    from linearsfm_tpu_torch.io import localmap as lio
     from linearsfm_tpu_torch.ops import kernels
 
     n = 2048
@@ -1002,7 +1070,7 @@ def phase_entry_points(datasets, tmp):
         data[d] = os.path.join(tmp, d)
         os.makedirs(data[d])
         t0 = time.perf_counter()
-        _write_dataset(maps, d, data[d])
+        lio.write_dataset(maps, data[d])
         size = sum(os.path.getsize(os.path.join(data[d], f))
                    for f in os.listdir(data[d]))
         print(f"entry {d}: wrote {n} local maps ({size / 2**20:.1f} MiB) "
@@ -1099,11 +1167,14 @@ def phase_entry_points(datasets, tmp):
 class _K2InSitu:
     """While active, every fused K2 call (`schur.inv3x3_wy`) is held against
     its plain version on its own inputs: both outputs `torch.equal` (NaN
-    where the plain version has NaN). Counts the calls."""
+    where the plain version has NaN). Counts the calls and those on one
+    lane (`root`: V [1, N, 3, 3], a tree's root join); `shapes` lists each
+    call's (P, N, K)."""
 
     def __enter__(self):
         from linearsfm_tpu_torch.ops import kernels, schur
-        self.calls, self._saved = 0, schur.inv3x3_wy
+        self.calls, self.root, self.shapes = 0, 0, []
+        self._saved = schur.inv3x3_wy
         fused = self._saved
 
         def held(V, W, Wpf):
@@ -1118,6 +1189,8 @@ class _K2InSitu:
                                          f"{list(W.shape)}: {what} kernel != "
                                          f"plain")
             self.calls += 1
+            self.root += V.shape[0] == 1
+            self.shapes.append((V.shape[0], V.shape[1], W.shape[1]))
             return got
         schur.inv3x3_wy = held
         return self
@@ -1126,6 +1199,18 @@ class _K2InSitu:
         from linearsfm_tpu_torch.ops import schur
         schur.inv3x3_wy = self._saved
         return False
+
+
+def _held_at_root(tag, k1, k2):
+    """Reports what `_K1InSitu` k1 and `_K2InSitu` k2 held; fails unless
+    both held calls at the root (on one lane)."""
+    k1.report(tag)
+    print(f"{tag}: every fused K2 call held against the plain version in "
+          f"situ (torch.equal, both outputs): {k2.calls} calls, {k2.root} on "
+          f"one lane, (P, N, K) of the last {k2.shapes[-1:]} ok", flush=True)
+    if not k1.root or not k2.root:
+        raise AssertionError(f"{tag}: calls held at the root: K1 {k1.root}, "
+                             f"K2 {k2.root}")
 
 
 def _ate_of(poses, poses_gt):
@@ -1412,6 +1497,12 @@ def _dense_main_path(datatype, maps, poses_gt, single, **solver_kw):
     if k2.calls != nlev:
         raise AssertionError(f"{tag}: {k2.calls} K2 calls, want one per "
                              f"level ({nlev})")
+    # level 0's first K1 call (A from the U lists of every map) timed alone
+    rows, cols, vals, M, N = k1.first
+    shape = [vals.shape[0], 6 * M, vals.shape[-1] * N]
+    _k1_time(f"{tag} level 0 A {shape} {str(vals.dtype).split('.')[-1]}",
+             *_k1_list_fns(rows, cols, vals, M, N))
+    del rows, cols, vals, k1
 
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.launches:
@@ -1459,8 +1550,9 @@ def _dense_k2_cost(M, N):
     """K2 at a dense root's shape, float32 (the refine path's): the fused
     launch (V^-1 and Yd = Wd V^-1 of the dense W read as a list of M*N
     entries, `ops/dense.entry_pairs`) against the inverse alone plus
-    `torch.einsum` (the JAX package's form), by device time (median of 10,
-    L2 flushed), beside the fused launch's bound."""
+    `torch.einsum` (the JAX package's form) and the plain version
+    (`inv3x3_wy_ref`), by device time (median of 10, L2 flushed), beside
+    the fused launch's bound."""
     import torch
     from linearsfm_tpu_torch.ops import dense, kernels
     from linearsfm_tpu_torch.utils.flops import PEAK_F32
@@ -1473,13 +1565,15 @@ def _dense_k2_cost(M, N):
     t = _device_ms({
         "fused": lambda: kernels.inv3x3_wy(V, W, Wpf),
         "einsum": lambda: torch.einsum("pmnif,pnfg->pmnig", Wd,
-                                       kernels.inv3x3_sym(V))})
+                                       kernels.inv3x3_sym(V)),
+        "plain": lambda: kernels.inv3x3_wy_ref(V, W, Wpf)})
     bound, by = _k2_bound_ms(1, N, M * N, 4, PEAK_F32)
     print(f"dense K2 at the stereo root (M {M}, N {N}, K {M * N}) float32: "
           f"fused {t['fused']:.4f} ms, bound {bound:.4f} ms ({by}) = "
           f"{bound / t['fused']:.1%}; inverse alone (K = 0) + torch.einsum "
-          f"{t['einsum']:.4f} ms; the pair list {Wpf.numel() * 8 / 2**20:.1f} "
-          f"MiB (device time, median of 10 calls, L2 flushed)", flush=True)
+          f"{t['einsum']:.4f} ms; plain (inv3x3_wy_ref) {t['plain']:.4f} ms; "
+          f"the pair list {Wpf.numel() * 8 / 2**20:.1f} MiB (device time, "
+          f"median of 10 calls, L2 flushed)", flush=True)
     del V, Wd, W, B
 
 
@@ -1529,6 +1623,212 @@ def phase_dense(datasets, single, text_dir, cli_poses):
     return launched
 
 
+def _captured(fn, *args, **kw):
+    """(fn's result, what it printed): its standard output is captured and
+    then printed as it was."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def _labelled(tag, text, labels):
+    missing = [lb for lb in labels if lb not in text]
+    if missing:
+        raise AssertionError(f"{tag}: labelled lines missing {missing}")
+
+
+def _compare_ate_512(datatype, tmp):
+    """`compare_ate` (through its `main`) on the 512-map covis set, seed 7,
+    device executor, refine, against the oracle binary run live on the same
+    files: the oracle must run, every pose id be there and finite, the
+    port's ATE be within 1e-6 of the oracle's from this run and the pose
+    files within 1e-5. Then the port's side runs again (`--phase port` on
+    the same files) with every K1 and K2 call held against its plain
+    version in situ, those at the root included, and must pass the same
+    checks. Returns the first pipeline run's kernel launches."""
+    import numpy as np
+    from linearsfm_tpu_torch.io import localmap as lio
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools import compare_ate
+
+    n, tag = 512, f"tools compare_ate {datatype}"
+    d, rec_path = os.path.join(tmp, datatype), os.path.join(tmp,
+                                                           f"{datatype}.json")
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    rc, text = _captured(compare_ate.main, [
+        "--num", str(n), "--type", datatype, "--covis", "--seed", "7",
+        "--noise", "0.005", "--exec", "device", "--method", "refine",
+        "--dir", d, "--json", rec_path])
+    launched = dict(kernels.launches)
+    if rc != 0:
+        raise AssertionError(f"{tag}: exit {rc}")
+    _labelled(tag, text, ("oracle wall:", "port wall:", "pose diff vs oracle:",
+                          "ATE vs gt: oracle"))
+    with open(rec_path) as fh:
+        rec = json.load(fh)
+    ids, poses = lio.read_poses(os.path.join(d, "pose_port.txt"))
+    want = set(range(1, n + 1)) if datatype == "stereo" else set(range(n + 2))
+    diff = rec["ate_port"] - rec["ate_oracle"]
+    print(f"{tag}: {n} covis maps, oracle wall {rec['oracle_wall_s']:.3f} s, "
+          f"port wall {rec['port_wall_s']:.3f} s (pipeline solve, cold "
+          f"solver), ATE oracle {rec['ate_oracle']:.12f} port "
+          f"{rec['ate_port']:.12f} (diff {diff:+.3e}, limit 1e-6), pose "
+          f"max |diff| {rec['pose_diff_max']:.3e} (limit 1e-5) rms "
+          f"{rec['pose_diff_rms']:.3e}, {len(ids)} poses, kernel launches "
+          f"{launched}; tool wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if (sorted(ids.tolist()) != sorted(want) or not np.isfinite(poses).all()
+            or rec["nonfinite_oracle"]):
+        raise AssertionError(f"{tag}: {len(ids)} pose ids (want "
+                             f"{len(want)}), non-finite port "
+                             f"{rec['nonfinite_port']}, oracle "
+                             f"{rec['nonfinite_oracle']}")
+    if not abs(diff) <= 1e-6:
+        raise AssertionError(f"{tag}: ATE {rec['ate_port']} off the "
+                             f"oracle's {rec['ate_oracle']}")
+    if not rec["pose_diff_max"] <= 1e-5:
+        raise AssertionError(f"{tag}: poses differ from the oracle's by "
+                             f"{rec['pose_diff_max']}")
+    with _K1InSitu() as k1, _K2InSitu() as k2:
+        rc, _ = _captured(compare_ate.main, [
+            "--num", str(n), "--type", datatype, "--covis", "--exec",
+            "device", "--method", "refine", "--dir", d, "--json", rec_path,
+            "--phase", "port"])
+    if rc != 0:
+        raise AssertionError(f"{tag} in situ: exit {rc}")
+    _held_at_root(f"{tag} in situ", k1, k2)
+    with open(rec_path) as fh:
+        rec = json.load(fh)
+    if not (abs(rec["ate_port"] - rec["ate_oracle"]) <= 1e-6
+            and rec["pose_diff_max"] <= 1e-5 and not rec["nonfinite_port"]):
+        raise AssertionError(f"{tag} in situ: ATE {rec['ate_port']} (oracle "
+                             f"{rec['ate_oracle']}), pose max |diff| "
+                             f"{rec['pose_diff_max']}, non-finite "
+                             f"{rec['nonfinite_port']}")
+    return launched
+
+
+def phase_tools(datasets):
+    """Phase 11, the tools and scale: (a) `compare_ate` against the live
+    oracle at 512 covis maps, stereo and mono; (b) the stereo 3,499-map
+    covis set (`ate_3499_covis.json`) through the main path's checks; (c)
+    the profiling tools on the main path's 2,048-map sets: `level_parts`
+    at every level of both, `profile_device_tree.profile` and
+    `bench_root.root_parts` on stereo (K1 and K2 counted around it),
+    `microbench` and `profile_tree` (512 stereo maps) through their
+    `main`. The K1 and K2 calls of (a), (b) and `bench_root`'s root
+    assembly are held against their plain versions in situ, those at the
+    root included. Returns the launches of each path."""
+    import torch
+    from synth import generate as gen
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools import (bench_root, microbench,
+                                           profile_device_tree,
+                                           profile_level_parts, profile_tree)
+
+    t_phase = time.perf_counter()
+    launched = {}
+    # (a) the live oracle
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        for d in ("stereo", "mono"):
+            launched[f"compare_ate {d} 512"] = _compare_ate_512(d, tmp)
+    t_a = time.perf_counter()
+
+    # (b) stereo 3,499
+    t0 = time.perf_counter()
+    maps, gt, _ = gen.make_dataset(3499, "stereo", noise=0.005, seed=7,
+                                   covis_radius=6.0, covis_max=6)
+    print(f"scale stereo 3499: dataset in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launched["stereo 3499"], _ = phase_main_path(
+        "stereo", maps, gt, None, None, n=3499, oracle=ORACLE_ATE_3499,
+        tag="scale stereo 3499", in_situ=True)
+    del maps, gt
+    t_b = time.perf_counter()
+
+    # (c) the profiling tools on the main path's sets
+    for d, (maps, _, _) in datasets.items():
+        solver = DeviceTreeSolver(d, method="refine", device="cuda")
+        t0 = time.perf_counter()
+        parts = profile_level_parts.level_parts(solver, maps)
+        if sorted(parts) != list(range(1, len(parts) + 1)):
+            raise AssertionError(f"tools level_parts {d}: levels "
+                                 f"{sorted(parts)}")
+        for li, rec in parts.items():
+            print(f"tools level_parts {d} L{li:2d} count {rec['count']:4d} "
+                  f"in {rec['caps_in']} out {rec['caps_out']}: T "
+                  f"{rec['T']:.3f} ms, TJ {rec['TJ']:.3f} ms, full "
+                  f"{rec['full']:.3f} ms", flush=True)
+        print(f"tools level_parts {d}: totals T "
+              f"{sum(r['T'] for r in parts.values()):.3f} ms, TJ "
+              f"{sum(r['TJ'] for r in parts.values()):.3f} ms, full "
+              f"{sum(r['full'] for r in parts.values()):.3f} ms "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        del parts, solver
+    maps = datasets["stereo"][0]
+    _, text = _captured(profile_device_tree.profile,
+                        DeviceTreeSolver("stereo", method="refine",
+                                         device="cuda"), maps)
+    _labelled("tools profile_device_tree", text,
+              ("cold:", "warm:", "warm2:", "timing=", "L 1 count=",
+               "L11 count="))
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    got, text = _captured(bench_root.root_parts,
+                          DeviceTreeSolver("stereo", method="refine",
+                                           device="cuda"), maps)
+    launched["bench_root stereo"] = dict(kernels.launches)
+    # the root's assembly once more, every K1 and K2 call held in situ,
+    # against the system bench_root assembled
+    with _K1InSitu() as k1, _K2InSitu() as k2:
+        S, E = bench_root.assemble(got["joined"])
+    _held_at_root("tools bench_root assembly", k1, k2)
+    err = max(float((S - got["S"]).abs().max() / got["S"].abs().max()),
+              float((E - got["E"]).abs().max() / got["E"].abs().max()))
+    print(f"tools bench_root: the held assembly's (S, E) vs the timed "
+          f"one's: max |diff| / max |value| {err:.3e} (limit 1e-12)",
+          flush=True)
+    if not err <= 1e-12:
+        raise AssertionError(f"tools bench_root: held assembly differs by "
+                             f"{err}")
+    del got, S, E, k1, k2
+    torch.cuda.empty_cache()
+    _labelled("tools bench_root", text,
+              ("root caps:", "transform (root, f64)", "join incl solve (root)",
+               "assemble dense S (root, f64)", "solve refine (root)",
+               "solve f32 (root)", "dcompact (root)",
+               "matmul f64 Yd@Wd.T only", "matmul f32 Yd@Wd.T only"))
+    print(f"tools bench_root: kernel launches {launched['bench_root stereo']}",
+          flush=True)
+    for tool, argv, labels in (
+            (microbench, [], ("B=256 M=32 N=32 KU=128 KW=128 O=4",
+                              "cholesky f64", "S scatter-add f64",
+                              "group_by_feature+pairprod f64",
+                              "congruence einsum f64")),
+            (profile_tree, ["512", "stereo"],
+             ("cold L 1 npair=", "warm L 9 npair=", "WARM TOTAL:"))):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        rc, text = _captured(tool.main, argv)
+        if rc != 0:
+            raise AssertionError(f"tools {name}: exit {rc}")
+        _labelled(f"tools {name}", text, labels)
+    for path, counts in launched.items():
+        for k, c in counts.items():
+            if c <= 0:
+                raise AssertionError(f"tools {path}: kernel {k} was never "
+                                     f"launched")
+    print(f"tools: phase {time.perf_counter() - t_phase:.2f} s ((a) "
+          f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
+          f"{time.perf_counter() - t_b:.2f} s)", flush=True)
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1571,6 +1871,7 @@ def main() -> int:
         paths.update(launched)
         paths.update(phase_mesh(datasets, single))
         paths.update(phase_dense(datasets, single, text_dir, cli_poses))
+    paths.update(phase_tools(datasets))
 
     def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}

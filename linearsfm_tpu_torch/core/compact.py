@@ -6,7 +6,8 @@ to the front, drop zero and dead blocks, merge duplicate block coordinates
 `compact` does one map (the host executor, between levels);
 `compact_stack` does a whole list in one vectorized pass over
 globally-offset keys and re-pads every map to shared capacities (the
-ingest of the device executor).
+ingest of the device executor); `stats` sums one map up
+(`tools/profile_tree`).
 """
 
 from __future__ import annotations
@@ -209,4 +210,16 @@ def compact_stack(lms: list, bucket: int = 16,
         n_poses=m.astype(np.int32), n_feats=n.astype(np.int32),
         n_U=nU_c.astype(np.int32), n_W=nW_c.astype(np.int32),
         gauge=gauge,
+    )
+
+
+def stats(lm: types.LocalMap) -> dict:
+    """Capacities and contents of one host-form map, as ints: M, N, KU, KW,
+    the valid pose and feature counts m, n, and the nonzero U and W blocks
+    nU, nW."""
+    return dict(
+        M=lm.M, N=lm.N, KU=lm.KU, KW=lm.KW,
+        m=int(lm.n_poses), n=int(lm.n_feats),
+        nU=int(np.any(np.asarray(lm.U) != 0, axis=(1, 2)).sum()),
+        nW=int(np.any(np.asarray(lm.W) != 0, axis=(1, 2)).sum()),
     )

@@ -60,6 +60,25 @@ def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
     )
 
 
+def _grow_stacked(stacked: types.LocalMap, M: int, N: int, KU: int,
+                 KW: int) -> types.LocalMap:
+    """Grow the slot capacities of a host (numpy) stack, axis 1 of every
+    field (no-op where already as large)."""
+    def grow(a, cap, fill=0):
+        if a.ndim < 2 or a.shape[1] >= cap:
+            return a
+        return np.pad(a, [(0, 0), (0, cap - a.shape[1])]
+                      + [(0, 0)] * (a.ndim - 2), constant_values=fill)
+
+    return dataclasses.replace(
+        stacked,
+        pose_ids=grow(stacked.pose_ids, M, -1), poses=grow(stacked.poses, M),
+        feat_ids=grow(stacked.feat_ids, N, -1), feats=grow(stacked.feats, N),
+        U=grow(stacked.U, KU), Uij=grow(stacked.Uij, KU),
+        W=grow(stacked.W, KW), Wpf=grow(stacked.Wpf, KW),
+        V=grow(stacked.V, N))
+
+
 class LevelTimer:
     """Per-level device walls: CUDA events on a GPU (read after the final
     synchronise, so timing does not stall the pipeline), the host clock on
@@ -335,6 +354,24 @@ class DeviceTreeSolver:
         return types.lanes(out, 0)
 
     # -- full tree -----------------------------------------------------------
+    def _plan(self, stacked: types.LocalMap) -> plan_mod.TreePlan:
+        """The exact tree plan of the compacted host stack."""
+        return plan_mod.plan_tree_exact(
+            plan_mod.sym_of_stacked(stacked), self.datatype, self.bucket,
+            self.u_bucket, map_offset=self.plan_offset,
+            final_regauge=self.final_regauge)
+
+    def prepare(self, maps: list):
+        """(tree plan, level 1's input): what `run` builds before its first
+        level — the maps compacted, planned and, padded to level 1's input
+        caps, lane-stacked on the solver's device (the profiling tools run
+        and time levels on it with `_level`)."""
+        stacked = compact_mod.compact_stack(maps, self.bucket, self.u_bucket)
+        tp = self._plan(stacked)
+        if tp:
+            stacked = _grow_stacked(stacked, *tp.levels[0].caps_in)
+        return tp, types.to_torch(stacked, self.device)
+
     def run(self, maps: list, metrics=None, ckpt_dir: str | None = None,
             resume: bool = False,
             time_levels: bool = False) -> types.LocalMap:
@@ -349,31 +386,11 @@ class DeviceTreeSolver:
         t0 = time.perf_counter()
         stacked = compact_mod.compact_stack(maps, self.bucket, self.u_bucket)
         t1 = time.perf_counter()
-        syms = plan_mod.sym_of_stacked(stacked)
-        tp = plan_mod.plan_tree_exact(syms, self.datatype, self.bucket,
-                                      self.u_bucket,
-                                      map_offset=self.plan_offset,
-                                      final_regauge=self.final_regauge)
+        tp = self._plan(stacked)
         if not tp:
             return types.lanes(types.to_torch(stacked, self.device), 0)
         plans = tp.levels
-        Mi, Ni, KUi, KWi = plans[0].caps_in
-
-        def grow(a, cap, fill=0):
-            if a.ndim < 2 or a.shape[1] >= cap:
-                return a
-            return np.pad(a, [(0, 0), (0, cap - a.shape[1])]
-                          + [(0, 0)] * (a.ndim - 2), constant_values=fill)
-
-        stacked = dataclasses.replace(
-            stacked,
-            pose_ids=grow(stacked.pose_ids, Mi, -1),
-            poses=grow(stacked.poses, Mi),
-            feat_ids=grow(stacked.feat_ids, Ni, -1),
-            feats=grow(stacked.feats, Ni),
-            U=grow(stacked.U, KUi), Uij=grow(stacked.Uij, KUi),
-            W=grow(stacked.W, KWi), Wpf=grow(stacked.Wpf, KWi),
-            V=grow(stacked.V, Ni))
+        stacked = _grow_stacked(stacked, *plans[0].caps_in)
         start_level = 0
         if resume and ckpt_dir:
             got = checkpoint.latest_stacked(ckpt_dir)

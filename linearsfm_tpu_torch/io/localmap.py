@@ -25,6 +25,8 @@ with the reference's spacing for poses, features and states.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .. import native, types
@@ -143,6 +145,21 @@ def write_local_map(path: str, lm_np: dict, datatype: str) -> None:
     ]
     with open(path, "w") as fh:
         fh.write("".join(parts))
+
+
+def write_dataset(maps, out_dir: str) -> None:
+    """Write `maps` (`synth.generate.SynthMap`s: numpy fields and a gauge
+    dict) as `localmap_<i>.txt`, i from 1, into `out_dir` (created if
+    missing): the counterpart of `synth.generate.write_dataset`, whose
+    `SynthMap.write` goes through the JAX package's writer."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i, m in enumerate(maps):
+        g = m.gauge
+        write_local_map(
+            os.path.join(out_dir, f"localmap_{i + 1}.txt"),
+            dict(pose_ids=m.pose_ids, poses=m.poses, feat_ids=m.feat_ids,
+                 feats=m.feats, U=m.U, Uij=m.Uij, W=m.W, Wpf=m.Wpf, V=m.V,
+                 gauge=g), "mono" if g["type"] == "mono" else "stereo")
 
 
 def _id_rows(ids, vals) -> np.ndarray:

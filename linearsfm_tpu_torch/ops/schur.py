@@ -402,8 +402,10 @@ def precond_factor(S32, E32, fixed_mask, fixc=None, sign=None):
     L = torch.where((info != 0)[:, None, None], torch.nan, L)
 
     def sch32(rhs32):
-        # both triangular solves on the one factor L
-        return dsc * torch.cholesky_solve((rhs32 * dsc)[..., None], L)[..., 0]
+        # both triangular solves on the one factor L; not
+        # torch.cholesky_solve, which fails on the H100 for the batch of two
+        # 12,288-wide factors of the 3,499-map stereo tree's level 11
+        return dsc * solve.solve_factored(L, rhs32 * dsc)
     return sch32, E32
 
 

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -37,18 +36,12 @@ def main(argv=None) -> int:
     from synth import generate as gen
     from linearsfm_tpu_torch.core.dense_tree import DenseTreeSolver
     from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools.common import open_device
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
-    if not args.cpu and not torch.cuda.is_available():
-        print("profile_dense_tree: no CUDA device (pass --cpu)",
-              file=sys.stderr)
+    device = open_device(args.cpu, "profile_dense_tree")
+    if device is None:
         return 1
-    device = "cpu" if args.cpu else "cuda"
-    if device == "cuda":
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True).stdout.strip(), flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     maps, _, _ = gen.make_dataset(args.maps, args.type, noise=0.005, seed=7,

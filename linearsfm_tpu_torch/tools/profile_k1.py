@@ -221,21 +221,33 @@ def innermost(ranges, ts, prefix):
     return best
 
 
-def device_us_by_range(trace_path, prefix):
-    """{range name: [device time of each instance, us]} over the ranges
-    whose name starts with prefix: the summed durations of the device
-    events launched inside one instance of the range."""
+def device_events_by_range(trace_path, prefix):
+    """{range name: [(device us, device events, launches) of each
+    instance]} over the ranges whose name starts with prefix: the summed
+    durations and the count of the device events launched inside one
+    instance of the range, and the count of the kernel launches, fills and
+    copies the host issued inside it (each should have one device event;
+    fewer means the profiler lost some)."""
+    with open(trace_path) as fh:
+        ev = json.load(fh)["traceEvents"]
     dev, launch, ranges = load_trace(trace_path)
     own = [r for r in ranges if r[2].startswith(prefix)]
-    acc = {(r[0], r[2]): 0.0 for r in own}
+    acc = {(r[0], r[2]): [0.0, 0, 0] for r in own}
     for e in dev:
         r = innermost(own, launch.get(e.get("args", {}).get("correlation")),
                       prefix)
         if r is not None:
-            acc[(r[0], r[2])] += e["dur"]
+            acc[(r[0], r[2])][0] += e["dur"]
+            acc[(r[0], r[2])][1] += 1
+    for e in ev:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and re.search(r"Launch|Memset|Memcpy", e.get("name", ""))):
+            r = innermost(own, e["ts"], prefix)
+            if r is not None:
+                acc[(r[0], r[2])][2] += 1
     out = {}
-    for (_, name), us in sorted(acc.items()):
-        out.setdefault(name, []).append(us)
+    for (_, name), rec in sorted(acc.items()):
+        out.setdefault(name, []).append(tuple(rec))
     return out
 
 

@@ -28,6 +28,7 @@ from linearsfm_tpu_torch.core import layout as tlayout
 from linearsfm_tpu_torch.core import pipeline as tpipeline
 from linearsfm_tpu_torch.core import plan as tplan
 from linearsfm_tpu_torch.core.tree import TreeSolver
+from linearsfm_tpu_torch.io import localmap as tio
 from linearsfm_tpu_torch.ops import dense as tdense
 from linearsfm_tpu_torch.ops import kernels
 from linearsfm_tpu_torch.utils import flops as tflops
@@ -42,10 +43,10 @@ def reference():
     imported here, not at collection, so that the `cuda` tests run on a
     machine without JAX (`--noconftest -m cuda`)."""
     global jax, jnp, jcompact, jdt, jlayout, jpipeline, jplan, jdense, jflops
-    global _same_text, _write_dataset
+    global _same_text
     import jax
     import jax.numpy as jnp
-    from test_torch_pipeline import _same_text, _write_dataset
+    from test_torch_pipeline import _same_text
     from linearsfm_tpu.core import compact as jcompact
     from linearsfm_tpu.core import dense_tree as jdt
     from linearsfm_tpu.core import layout as jlayout
@@ -364,7 +365,7 @@ def test_pipeline_and_cli_dense_match_reference(tmp_path, capsys, caplog):
     checkpoint directory is warned about and ignored."""
     maps, _, _ = gen.make_dataset(8, "stereo", noise=0.01, seed=0)
     data = str(tmp_path / "data")
-    _write_dataset(maps, data, "stereo")
+    tio.write_dataset(maps, data)
     files = {name: {k: str(tmp_path / f"{k}_{name}.txt")
                     for k in ("p", "f", "st")}
              for name in ("reference", "pipeline", "cli")}

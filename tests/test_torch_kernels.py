@@ -401,10 +401,13 @@ def test_inv3x3_wy_dispatch_counts_only_kernel_launches():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port pulls in neither jax nor the
-    reference package (run in a fresh interpreter)."""
+    """Importing every module of the port (each module and subpackage that
+    `pkgutil.walk_packages` finds under `linearsfm_tpu_torch`, the tools
+    included) and every module `chip_smoke.py` imports, at its top or
+    inside its functions, pulls in neither jax nor the reference package
+    (run in a fresh interpreter)."""
     code = (
-        "import sys\n"
+        "import ast, importlib, importlib.util, pkgutil, sys\n"
         "import linearsfm_tpu_torch\n"
         "from linearsfm_tpu_torch import types\n"
         "from linearsfm_tpu_torch.ops import congruence, gauge, kernels, "
@@ -416,15 +419,41 @@ def test_port_imports_no_jax():
         "import linearsfm_tpu_torch.tools.multihost_worker\n"
         "from linearsfm_tpu_torch.utils import metrics\n"
         "import synth.generate\n"
+        "walked = [m.name for m in pkgutil.walk_packages("
+        "linearsfm_tpu_torch.__path__, 'linearsfm_tpu_torch.')]\n"
+        "for name in walked:\n"
+        "    importlib.import_module(name)\n"
+        "smoke = set()\n"
+        "for node in ast.walk(ast.parse(open('chip_smoke.py').read())):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        smoke.update(a.name for a in node.names)\n"
+        "    elif isinstance(node, ast.ImportFrom) and node.level == 0:\n"
+        "        smoke.add(node.module)\n"
+        "        for a in node.names:\n"
+        "            sub = node.module + '.' + a.name\n"
+        "            if importlib.util.find_spec(node.module).submodule_search_"
+        "locations and importlib.util.find_spec(sub):\n"
+        "                smoke.add(sub)\n"
+        "for name in sorted(smoke):\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'linearsfm_tpu' or m.startswith('linearsfm_tpu.')]\n"
         "assert not bad, bad\n"
-        "print('clean')\n")
+        "need = {'linearsfm_tpu_torch.tools.compare_ate', "
+        "'linearsfm_tpu_torch.tools.bench_root', "
+        "'linearsfm_tpu_torch.tools.generate', "
+        "'linearsfm_tpu_torch.cli'}\n"
+        "assert need <= set(walked), sorted(need - set(walked))\n"
+        "assert {'linearsfm_tpu_torch.ops.kernels', "
+        "'linearsfm_tpu_torch.tools.compare_ate', "
+        "'linearsfm_tpu_torch.tools.bench_root'} <= smoke, sorted(smoke)\n"
+        "print('clean', len(walked), len(smoke))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "clean"
+    assert proc.stdout.strip().split()[0] == "clean", proc.stdout
 
 
 @pytest.mark.cuda
@@ -630,6 +659,29 @@ def test_direct_solve_float64_level_batch_on_cuda():
     x = solve.cholesky_solve(S, E)
     r = (S @ x[..., None])[..., 0] - E
     assert float(r.abs().max() / E.abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_pcg_preconditioner_float32_level_batch_on_cuda():
+    """The refine preconditioner at the 3,499-map stereo tree's level 11:
+    two 12,288-wide float32 systems factored and solved as one batch
+    (`schur.precond_factor`'s sch32). `torch.cholesky_solve` raised "CUDA
+    error: invalid argument" on this batch on the H100 (torch
+    2.11.0+cu128); two triangular solves solve it to float32 accuracy."""
+    _needs_card()
+    from linearsfm_tpu_torch.ops import schur
+    g = torch.Generator(device="cuda").manual_seed(13)
+    d = 12288
+    A = torch.randn((2, d, d), generator=g, device="cuda") / d ** 0.5
+    S = A @ A.transpose(-1, -2) + torch.eye(d, device="cuda")
+    del A
+    E = torch.randn((2, d), generator=g, device="cuda")
+    fixed = torch.zeros((2, d), dtype=torch.bool, device="cuda")
+    sch32, E32 = schur.precond_factor(S.clone(), E, fixed)
+    x = sch32(E32)
+    r = (S @ x[..., None])[..., 0] - E
+    assert bool(torch.isfinite(x).all())
+    assert float(r.abs().max() / E.abs().max()) < 1e-3
 
 
 @pytest.mark.cuda

@@ -46,14 +46,6 @@ def _fields(m) -> dict:
                 gauge=m.gauge)
 
 
-def _write_dataset(maps, out_dir, datatype):
-    """localmap_<i>.txt with the port's writer."""
-    os.makedirs(out_dir, exist_ok=True)
-    for i, m in enumerate(maps):
-        tio.write_local_map(os.path.join(out_dir, f"localmap_{i + 1}.txt"),
-                            _fields(m), datatype)
-
-
 _NUM = re.compile(r"nan|-?inf|-?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
 
 
@@ -191,7 +183,7 @@ def test_cli_matches_reference(tmp_path, capsys, executor):
     values at printed precision."""
     maps, _, _ = gen.make_dataset(8, "stereo", noise=0.01, seed=0)
     data = str(tmp_path / "data")
-    _write_dataset(maps, data, "stereo")
+    tio.write_dataset(maps, data)
     outs = {}
     for name, main in (("port", tcli.main), ("reference", jcli.main)):
         files = {k: str(tmp_path / f"{k}_{name}.txt")
@@ -213,7 +205,7 @@ def test_pipeline_run_matches_reference(tmp_path, executor):
     and so do the written files."""
     maps, _, _ = gen.make_dataset(7, "mono", noise=0.005, seed=0)
     data = str(tmp_path / "data")
-    _write_dataset(maps, data, "mono")
+    tio.write_dataset(maps, data)
     paths = {name: {k: str(tmp_path / f"{k}_{name}.txt")
                     for k in ("pose", "feat", "st")}
              for name in ("port", "reference")}
@@ -256,7 +248,7 @@ def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
     for datatype in ("mono", "stereo"):
         maps, _, _ = gen.make_dataset(3, datatype, noise=0.005, seed=0)
         data = str(tmp_path / datatype)
-        _write_dataset(maps, data, datatype)
+        tio.write_dataset(maps, data)
         for method in ("direct", "refine"):
             seen.clear()
             tpipeline.run(data, 3, datatype, method=method, progress=False,
@@ -364,7 +356,7 @@ def test_oracle_golden_through_port(tmp_path, case):
     feature by feature (stereo atol 1e-5, mono 1e-4)."""
     datatype, num, noise, seed, atol, kw = GOLDEN[case]
     maps, _, _ = gen.make_dataset(num, datatype, noise=noise, seed=seed)
-    _write_dataset(maps, str(tmp_path), datatype)
+    tio.write_dataset(maps, str(tmp_path))
     oracle = _ensure_oracle()
     typ = "Stereo" if datatype == "stereo" else "Monocular"
     r = subprocess.run(
