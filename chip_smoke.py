@@ -45,8 +45,10 @@ Phases, each printing its lines; any failure exits non-zero:
 6. the stereo main path: the 2,048-map stereo loop-closure set (seed 7,
    noise 0.005, covis radius 6, at most 6 co-visible features per map; made
    with its plan before phase 3) through `DeviceTreeSolver("stereo",
-   method="refine", device="cuda")`, one warm run and one timed run. Fails
-   unless every pose id 1..2,048 is there and finite, the ATE is within
+   method="refine")`, as `bench.py` builds it (no device argument: the
+   card by default), one warm run and one timed run. Fails unless the
+   root lies on cuda:0, every pose id 1..2,048 is there and finite, the
+   ATE is within
    1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10
    and K1 and K2 launched. It also prints the `utils/flops` model's f32
    rate of the timed run and its share of the H100's 67 TFLOP/s f32 peak (a
@@ -115,12 +117,27 @@ Phases, each printing its lines; any failure exits non-zero:
    and `bench_root.root_parts` on stereo, then `microbench` at its defaults
    and `profile_tree` at 512 stereo maps through their `main`: each must
    exit 0 and print its labelled lines, and K1 and K2 must launch in
-   `bench_root`.
+   `bench_root`;
+12. the JAX package's call forms, no device argument (`phase_call_forms`):
+   direct mono through `DeviceTreeSolver.run` called directly, three times
+   (identical poses, ATE within 1e-6 of the oracle's), and through
+   `DenseTreeSolver.run` twice (identical poses); pin="zero" at 2,048
+   maps (ATE within 1e-6 of the oracle's) and on the 11-map set against
+   the CPU; `TreeSolver("stereo")` and `DenseTreeSolver("stereo",
+   method="refine")` at 512 maps on cuda:0, and `pipeline.run(path, 512,
+   "stereo")`, each against phase 11a's live oracle on the same set (ATE
+   within 1e-6, poses within 1e-5; the dense executor's default refine,
+   f32 at its low levels, 1e-4 and 5e-4, and with f64 at every level
+   1e-6 and 1e-5); `__graft_entry__`'s
+   `merge_one_stereo(g, m, JoinConfig(max_obs=8))` against the CPU. Every
+   K1 and K2 call of the paths it counts is held against its plain
+   version in situ.
 
 The kernel launch counts are set to 0 just before each main path's timed
 run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
 after it, and likewise around each `compare_ate` run and `bench_root`
-(phase 11); the warm run checks that K2 ran at the shapes phase 4 timed.
+(phase 11) and each of phase 12's runs; the warm run checks that K2 ran
+at the shapes phase 4 timed.
 The CLI runs report their own counts (pipeline log); the host run's are
 set to 0 before `cli.main` and read after it. Every path must launch K1
 and K2. The line before the last is the kernel record (per kernel:
@@ -748,7 +765,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
 
     tag = tag or f"main {datatype}"
     oracle = ORACLE_ATE_2048[datatype] if oracle is None else oracle
-    solver = DeviceTreeSolver(datatype, method="refine", device="cuda")
+    # bench.py's call form: no device argument, the card by default
+    solver = DeviceTreeSolver(datatype, method="refine")
     fused, seen = kernels.inv3x3_wy, []
 
     def record(V, W, Wpf):
@@ -790,6 +808,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     launched = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
+    if out.poses.device != torch.device("cuda", 0):
+        raise AssertionError(f"{tag}: the root lies on {out.poses.device}")
     h = types.to_numpy(out)
     ids, poses = h.pose_ids, h.poses
     valid = ids >= 0
@@ -1081,8 +1101,9 @@ def phase_entry_points(datasets, tmp):
         cli_poses[d], got = _cli_subprocess(
             f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
         launched[f"cli {d}"] = got["launches"]
-    # the direct mono solve sums in a fixed order (core/pipeline): a
-    # second process writes the same pose file, byte for byte
+    # the device executor sums direct mono in a fixed order
+    # (ops/segment.deterministic): a second process writes the same pose
+    # file, byte for byte
     _cli_subprocess("entry cli mono (again)", data["mono"], "mono", n,
                     datasets["mono"][1], tmp, run=1)
     same = [open(os.path.join(tmp, f"pose_cli_mono{r}.txt"), "rb").read()
@@ -1648,7 +1669,8 @@ def _compare_ate_512(datatype, tmp):
     files within 1e-5. Then the port's side runs again (`--phase port` on
     the same files) with every K1 and K2 call held against its plain
     version in situ, those at the root included, and must pass the same
-    checks. Returns the first pipeline run's kernel launches."""
+    checks. Returns the first pipeline run's kernel launches and the
+    oracle's result: its ATE and its poses by id (from its pose file)."""
     import numpy as np
     from linearsfm_tpu_torch.io import localmap as lio
     from linearsfm_tpu_torch.ops import kernels
@@ -1694,6 +1716,9 @@ def _compare_ate_512(datatype, tmp):
     if not rec["pose_diff_max"] <= 1e-5:
         raise AssertionError(f"{tag}: poses differ from the oracle's by "
                              f"{rec['pose_diff_max']}")
+    ids_r, pr = lio.read_poses(os.path.join(d, "pose_ref.txt"))
+    oracle = dict(ate=rec["ate_oracle"],
+                  poses={int(i): p for i, p in zip(ids_r, pr)})
     with _K1InSitu() as k1, _K2InSitu() as k2:
         rc, _ = _captured(compare_ate.main, [
             "--num", str(n), "--type", datatype, "--covis", "--exec",
@@ -1710,7 +1735,7 @@ def _compare_ate_512(datatype, tmp):
                              f"{rec['ate_oracle']}), pose max |diff| "
                              f"{rec['pose_diff_max']}, non-finite "
                              f"{rec['nonfinite_port']}")
-    return launched
+    return launched, oracle
 
 
 def phase_tools(datasets):
@@ -1723,7 +1748,8 @@ def phase_tools(datasets):
     `microbench` and `profile_tree` (512 stereo maps) through their
     `main`. The K1 and K2 calls of (a), (b) and `bench_root`'s root
     assembly are held against their plain versions in situ, those at the
-    root included. Returns the launches of each path."""
+    root included. Returns the launches of each path and the live
+    oracle's result on each 512-map set (`_compare_ate_512`)."""
     import torch
     from synth import generate as gen
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
@@ -1733,11 +1759,12 @@ def phase_tools(datasets):
                                            profile_level_parts, profile_tree)
 
     t_phase = time.perf_counter()
-    launched = {}
+    launched, oracle = {}, {}
     # (a) the live oracle
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
         for d in ("stereo", "mono"):
-            launched[f"compare_ate {d} 512"] = _compare_ate_512(d, tmp)
+            launched[f"compare_ate {d} 512"], oracle[d] = _compare_ate_512(
+                d, tmp)
     t_a = time.perf_counter()
 
     # (b) stereo 3,499
@@ -1826,6 +1853,249 @@ def phase_tools(datasets):
     print(f"tools: phase {time.perf_counter() - t_phase:.2f} s ((a) "
           f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
           f"{time.perf_counter() - t_b:.2f} s)", flush=True)
+    return launched, oracle
+
+
+def _counted(fn):
+    """fn() with the kernel launch counts set to 0 just before it and read
+    just after it: (its result, the launches, its wall in seconds)."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launches), time.perf_counter() - t0
+
+
+def _held_counted(tag, fn, k1_at_root=True):
+    """`_counted(fn)` with every K1 and K2 call held against its plain
+    version in situ (`_K1InSitu`, `_K2InSitu`): K2 and (given
+    `k1_at_root`) K1 must have been held at the root; the dense executor
+    calls K1 at level 0 only. The wall includes the checks."""
+    with _K1InSitu() as k1, _K2InSitu() as k2:
+        got = _counted(fn)
+    if k1_at_root:
+        _held_at_root(tag, k1, k2)
+    else:
+        k1.report(tag)
+        print(f"{tag}: every fused K2 call held against the plain version "
+              f"in situ (torch.equal, both outputs): {k2.calls} calls, "
+              f"{k2.root} on one lane ok", flush=True)
+        if not k2.root:
+            raise AssertionError(f"{tag}: no K2 call held at the root")
+    return got
+
+
+def phase_call_forms(datasets, oracle512):
+    """Phase 12, the JAX package's call forms on the port, no device
+    argument anywhere (the card is the default). Every run whose launches
+    it returns holds each K1 and K2 call against its plain version in situ
+    (`_held_counted`). (a) `DeviceTreeSolver("mono", method="direct")` run
+    directly (no pipeline) on the 2,048-map mono set three times, the last
+    held in situ: every pose id there and finite, the three runs'
+    poses `torch.equal` (the solver sums direct mono in a fixed order), the
+    ATE within 1e-6 of the oracle's; both plain walls printed;
+    `DenseTreeSolver("mono", method="direct")` twice, the second held in
+    situ: equal poses with PyTorch's default sums, ATE within 1e-6; (b)
+    `DeviceTreeSolver("mono", method="direct", pin="zero")` at 2,048 maps:
+    every pose finite, the ATE within 1e-6 of the oracle's; the 11-map mono
+    set with pin="zero", direct and refine, on the card against the CPU
+    within 1e-9; (c) `TreeSolver("stereo")` and `DenseTreeSolver("stereo",
+    method="refine")` at 512 covis maps (seed 7), on cuda:0, and
+    `pipeline.run(path, 512, "stereo")` on that set written as text: every
+    pose id there and finite, the ATE within 1e-6 of the live oracle's on
+    the same set (`oracle512`, phase 11a) and every pose within 1e-5 of
+    the oracle's pose file, as phase 11a holds the port (the dense
+    executor's default refine, f32 at its low levels: 1e-4 and 5e-4; then
+    again with `mixed_max_m=0` at 1e-6 and 1e-5); (d)
+    `__graft_entry__.entry`'s single-pair merge, `merge_one_stereo(g, m,
+    JoinConfig(max_obs=8))` on two maps of the 2-map stereo set (2
+    features per pose, seed 0, compacted at buckets 8 / 16), on the card
+    against the CPU within 1e-9. Returns the launches of each path."""
+    import numpy as np
+    import torch
+    from synth import generate as gen
+    from linearsfm_tpu_torch import types
+    from linearsfm_tpu_torch.core import compact, pipeline
+    from linearsfm_tpu_torch.core.dense_tree import DenseTreeSolver
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.core.join import JoinConfig
+    from linearsfm_tpu_torch.core.tree import TreeSolver
+    from linearsfm_tpu_torch.io import localmap as lio
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.parallel import level
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    launched = {}
+    maps, gt, _ = datasets["mono"]
+    oracle = ORACLE_ATE_2048["mono"]
+    mono_ids = set(range(len(maps) + 2))   # pose 0 an explicit block
+
+    def check(tag, lm, want_ids):
+        h = types.host_fields(lm)
+        ok = h.pose_ids >= 0
+        if (sorted(int(i) for i in h.pose_ids[ok]) != sorted(want_ids)
+                or not np.isfinite(h.poses[ok]).all()):
+            raise AssertionError(f"{tag}: {int(ok.sum())} valid poses (want "
+                                 f"{len(want_ids)}), finite="
+                                 f"{np.isfinite(h.poses[ok]).all()}")
+
+    def near_oracle(tag, ate, ref, limit=1e-6):
+        print(f"{tag}: ATE {ate:.9f} (oracle {ref:.9f}, diff "
+              f"{ate - ref:+.3e}, limit {limit:g})", flush=True)
+        if not abs(ate - ref) <= limit:
+            raise AssertionError(f"{tag}: ATE {ate} off the oracle's {ref}")
+
+    # (a) fixed-order direct mono, called directly
+    tag = "call forms mono direct"
+    solver = DeviceTreeSolver("mono", method="direct")
+    if solver.device != card:
+        raise AssertionError(f"{tag}: DeviceTreeSolver('mono', "
+                             f"method='direct') on {solver.device}")
+    runs = []
+    for k in range(2):
+        out, counts, wall = _counted(lambda: solver.run(maps))
+        check(tag, out, mono_ids)
+        runs.append((wall, out.poses))
+        print(f"{tag} run {k}: wall {wall:.4f} s, kernel launches {counts}",
+              flush=True)
+        del out
+    out, launched[tag], wall = _held_counted(f"{tag} in situ",
+                                             lambda: solver.run(maps))
+    check(f"{tag} in situ", out, mono_ids)
+    pa = _poses_by_id(out)
+    same = [torch.equal(runs[0][1], p) for p in (runs[1][1], out.poses)]
+    print(f"{tag}: runs 0 and 1 torch.equal {same[0]}, run 0 and the in-situ "
+          f"run {same[1]}; walls {runs[0][0]:.4f} / {runs[1][0]:.4f} s "
+          f"(in situ {wall:.4f} s); kernel launches {launched[tag]}",
+          flush=True)
+    if not all(same):
+        raise AssertionError(f"{tag}: the runs' poses differ")
+    near_oracle(tag, _ate_of(pa, gt), oracle)
+    del runs, out, solver
+    # the dense executor's default sums already give the same poses on
+    # every run (PERF.md §6), so it sums without the fixed-order scope
+    tag = "call forms dense mono direct"
+    dense = DenseTreeSolver("mono", method="direct")
+    first, _, wall = _counted(lambda: dense.run(maps))
+    out, launched[tag], wall_held = _held_counted(
+        tag, lambda: dense.run(maps), k1_at_root=False)
+    check(tag, out, mono_ids)
+    same = np.array_equal(first.poses, out.poses)
+    print(f"{tag}: two runs' poses equal {same}; walls {wall:.4f} s, in "
+          f"situ {wall_held:.4f} s; kernel launches {launched[tag]}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: the runs' poses differ")
+    near_oracle(tag, _ate_of(_poses_by_id(out), gt), oracle)
+    del first, out, dense
+    t_a = time.perf_counter()
+
+    # (b) pin="zero"
+    tag = "call forms mono direct pin zero"
+    zero = DeviceTreeSolver("mono", method="direct", pin="zero")
+    out, launched[tag], wall = _held_counted(tag, lambda: zero.run(maps))
+    check(tag, out, mono_ids)
+    p = _poses_by_id(out)
+    print(f"{tag}: wall {wall:.4f} s (in situ), max pose diff vs pin='sign' "
+          f"{_max_diff('pin', p, pa):.3e}, kernel launches {launched[tag]}",
+          flush=True)
+    near_oracle(tag, _ate_of(p, gt), oracle)
+    del out, zero
+    small, _, _ = gen.make_dataset(11, "mono", noise=0.01, seed=5)
+    for method in ("direct", "refine"):
+        a = _poses_by_id(DeviceTreeSolver("mono", method=method,
+                                          pin="zero").run(small))
+        b = _poses_by_id(DeviceTreeSolver("mono", method=method, pin="zero",
+                                          device="cpu").run(small))
+        diff = _max_diff(f"tree11 mono {method} pin zero", a, b)
+        print(f"call forms tree11 mono {method} pin='zero': GPU vs CPU max "
+              f"pose diff {diff:.3e} (atol 1e-9)", flush=True)
+        if not diff <= 1e-9:
+            raise AssertionError(f"call forms tree11 mono {method} pin zero: "
+                                 f"GPU vs CPU {diff:.3e}")
+    t_b = time.perf_counter()
+
+    # (c) the host and dense executors and pipeline.run at 512 covis maps,
+    # against the live oracle on the same set
+    m512, gt512, _ = gen.make_dataset(512, "stereo", noise=0.005, seed=7,
+                                      covis_radius=6.0, covis_max=6)
+
+    def vs_oracle(tag, out, ate_limit=1e-6, pose_limit=1e-5):
+        check(tag, out, set(range(1, 513)))
+        p = _poses_by_id(out)
+        diff = _max_diff(tag, p, oracle512["poses"])
+        print(f"{tag}: pose max |diff| vs the oracle's pose file {diff:.3e} "
+              f"(limit {pose_limit:g})", flush=True)
+        if not diff <= pose_limit:
+            raise AssertionError(f"{tag}: poses differ from the oracle's by "
+                                 f"{diff}")
+        near_oracle(tag, _ate_of(p, gt512), oracle512["ate"], ate_limit)
+
+    # the dense executor's default refine keeps f32 information at its
+    # low levels: at 512 maps it lands +2.690e-5 (ATE) and 1.494e-4
+    # (poses) from the oracle on the H100, and the JAX package's as far
+    # on the CPU (ROADMAP queue 3 item 5), so it is held to 1e-4 and 5e-4;
+    # with f64 information at every level (mixed_max_m=0) to the exact
+    # solve's limits
+    for tag, make, at_root, limits in (
+            ("host stereo 512", lambda: TreeSolver("stereo"), True,
+             (1e-6, 1e-5)),
+            ("dense stereo 512 refine",
+             lambda: DenseTreeSolver("stereo", method="refine"), False,
+             (1e-4, 5e-4)),
+            ("dense stereo 512 refine f64",
+             lambda: DenseTreeSolver("stereo", method="refine",
+                                     mixed_max_m=0), False, (1e-6, 1e-5))):
+        tag = f"call forms {tag}"
+        s = make()
+        if s.device != card:
+            raise AssertionError(f"{tag}: on {s.device}")
+        out, launched[tag], wall = _held_counted(tag, lambda: s.run(m512),
+                                                 at_root)
+        print(f"{tag}: on {s.device}, wall {wall:.4f} s (in situ), kernel "
+              f"launches {launched[tag]}", flush=True)
+        vs_oracle(tag, out, *limits)
+        del s, out
+    # pipeline.run(path, num, datatype): the host executor, direct
+    tag = "call forms pipeline.run stereo 512"
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text:
+        lio.write_dataset(m512, text)
+        (out, _), launched[tag], wall = _held_counted(
+            tag, lambda: pipeline.run(text, 512, "stereo", progress=False))
+    print(f"{tag}: pipeline.run(path, 512, 'stereo') wall {wall:.4f} s (in "
+          f"situ), kernel launches {launched[tag]}", flush=True)
+    vs_oracle(tag, out)
+    t_c = time.perf_counter()
+
+    # (d) the single-pair merge of __graft_entry__.entry
+    two, _, _ = gen.make_dataset(2, "stereo", feats_per_pose=2, noise=0.01,
+                                 seed=0)
+    lms = [compact.compact(m, bucket=8, u_bucket=16) for m in two]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        g, m = (types.stack([types.to_torch(lm, dev)]) for lm in lms)
+        got[dev] = level.merge_one_stereo(g, m, JoinConfig(max_obs=8))
+    diff = max(float((got["cuda"].poses.cpu() - got["cpu"].poses).abs().max()),
+               float((got["cuda"].feats.cpu() - got["cpu"].feats).abs().max()))
+    print(f"call forms merge_one_stereo(JoinConfig(max_obs=8)): GPU vs CPU "
+          f"max state diff {diff:.3e} (atol 1e-9)", flush=True)
+    if not diff <= 1e-9:
+        raise AssertionError(f"call forms merge_one_stereo: GPU vs CPU "
+                             f"{diff:.3e}")
+    for path, counts in launched.items():
+        for k, c in counts.items():
+            if c <= 0:
+                raise AssertionError(f"{path}: kernel {k} was never "
+                                     f"launched")
+    print(f"call forms: phase {time.perf_counter() - t_phase:.2f} s ((a) "
+          f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
+          f"{t_c - t_b:.2f} s, (d) {time.perf_counter() - t_c:.2f} s)",
+          flush=True)
     return launched
 
 
@@ -1871,7 +2141,9 @@ def main() -> int:
         paths.update(launched)
         paths.update(phase_mesh(datasets, single))
         paths.update(phase_dense(datasets, single, text_dir, cli_poses))
-    paths.update(phase_tools(datasets))
+    launched, oracle512 = phase_tools(datasets)
+    paths.update(launched)
+    paths.update(phase_call_forms(datasets, oracle512["stereo"]))
 
     def record(name, source, replaces, max_err, t, library):
         by_path = {d: c[name] for d, c in paths.items()}

@@ -12,11 +12,13 @@ Conventions that replace the reference's JAX configuration:
 
 * Dtypes are explicit at every call: the information path is float64 and the
   Schur preconditioner float32. Nothing sets a global default dtype.
-* The device is an explicit argument (`types.to_torch(..., device=...)`,
-  `DeviceTreeSolver(..., device=...)`, `TreeSolver`, `DenseTreeSolver`,
-  `pipeline.run`);
-  nothing picks one by itself. The CLI solves on `cuda` unless given
-  `--cpu`, and fails rather than fall back.
+* The entry points (`DeviceTreeSolver`, `TreeSolver`, `DenseTreeSolver`,
+  `pipeline.run`) take the reference's parameters and a keyword-only
+  `device`, the card by default; `device="cpu"` runs on the CPU, and with
+  no CUDA device they raise rather than fall back, as the CLI does
+  without `--cpu`. Lower-level functions run where their tensors lie
+  (`types.to_torch(..., device)`). `_parity.py` lists where the port's
+  public API departs from the reference's, and why.
 * float32 matmuls must run in full float32 on the GPU
   (`torch.backends.cuda.matmul.allow_tf32` False, the default), the
   counterpart of the reference's `jax_default_matmul_precision="highest"`;

@@ -35,6 +35,7 @@ from ..ops import dense as D
 from ..ops import schur
 from ..ops.rotations import wrap_angle_diff, wrap_angle_pi
 from ..ops.segment import put1, take1
+from ..parallel.mesh import solver_device
 from . import compact as compact_mod
 from . import layout as L
 from .device_tree import LevelTimer
@@ -151,7 +152,8 @@ class DenseTreeSolver:
     (a plain f32 solve), f64 information and an f32 factor with
     `refine_iters` refinement sweeps above.
 
-    device: where the levels run (explicit; nothing is picked by default).
+    device (keyword-only): where the levels run, the card by default;
+    `device="cpu"` for the CPU; a CUDA device with no CUDA raises.
     fuse: the levels of at most `fuse_max_count` maps (the tail of the
     tree) are recorded in the metrics as one fused pass sharing one wall,
     as the JAX package compiles them into one program; eager PyTorch runs
@@ -161,12 +163,12 @@ class DenseTreeSolver:
     def __init__(self, datatype: str, method: str = "refine",
                  refine_iters: int = 3, bucket: int = 16,
                  mixed_max_m: int = 32, progress: bool = False,
-                 fuse: bool = True, *, device):
+                 fuse: bool = True, *, device="cuda"):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
         self.datatype = datatype
-        self.device = torch.device(device)
+        self.device = solver_device(device, "DenseTreeSolver")
         self.method = method
         self.refine_iters = refine_iters
         self.bucket = bucket

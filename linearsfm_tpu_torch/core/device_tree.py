@@ -24,6 +24,7 @@ the <=1,024-lane split, and AOT warm-up.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -32,9 +33,9 @@ import numpy as np
 import torch
 
 from .. import types
-from ..ops import congruence
+from ..ops import congruence, segment
 from ..parallel import level as plevel
-from ..parallel.mesh import canonical
+from ..parallel.mesh import canonical, solver_device
 from ..utils import checkpoint
 from . import compact as compact_mod
 from . import dcompact
@@ -108,9 +109,14 @@ class DeviceTreeSolver:
     """Device-resident hierarchical solver: binary-tree reduction with odd
     carry, every-2nd-map re-gauge, final re-gauge to the first map's frame.
 
-    datatype: "stereo" or "mono". device: where the levels run (explicit;
-    nothing is picked by default). Mono joins pin the scale coordinate with
-    `JoinConfig`'s default, "sign".
+    The reference's parameters in its order. datatype: "stereo" or "mono".
+    method: "refine" (the f32-preconditioned f64 PCG; mono with pin "zero":
+    the reduced system's f32 factor with `refine_iters` refinement sweeps)
+    or "direct" (f64 Cholesky). pin: the mono scale pin of every join,
+    "sign" or "zero" (`JoinConfig.pin`). device (keyword-only): where the
+    levels run, the card by default; `device="cpu"` runs the kernels'
+    plain versions, and a CUDA device with no CUDA raises. Direct mono
+    sums in a fixed order (`ops/segment.deterministic`).
     Iteration bands (method="refine"): joins with fewer than `top_min_m`
     joined poses run `refine_iters` PCG sweeps; larger ones up to
     `top_iters`, with the early exit at `pcg_exit_tol` and `top_iters` more
@@ -131,20 +137,20 @@ class DeviceTreeSolver:
     its root is the whole tree's (`core/plan.plan_tree_exact`).
     """
 
-    def __init__(self, datatype: str = "stereo", method: str = "refine",
+    def __init__(self, datatype: str, method: str = "refine",
                  refine_iters: int = 3, bucket: int = 16, u_bucket: int = 64,
-                 mixed_max_m: int = 0,
-                 direct_min_m: int = 0,
+                 pin: str = "sign", progress: bool = False,
+                 mixed_max_m: int = 0, direct_min_m: int = 0,
                  top_min_m: int = 256, top_iters: int = 16,
+                 plan_offset: int = 0, final_regauge: bool = True,
+                 mesh=None, root_shard_min: int = 256,
                  escalate_tol: float = 1e-8, pcg_exit_tol: float = 1e-14,
-                 progress: bool = False, plan_offset: int = 0,
-                 final_regauge: bool = True, mesh=None,
-                 root_shard_min: int = 256, *, device):
+                 *, device="cuda"):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
         self.datatype = datatype
-        self.device = torch.device(device)
+        self.device = solver_device(device, "DeviceTreeSolver")
         if mesh is not None and canonical(device) != mesh.devices[0]:
             raise ValueError(f"DeviceTreeSolver: device {device} is not the "
                              f"mesh's first device {mesh.devices[0]}")
@@ -155,6 +161,7 @@ class DeviceTreeSolver:
         self.final_regauge = final_regauge
         self.method = method
         self.refine_iters = refine_iters
+        self.pin = pin
         self.bucket = bucket
         self.u_bucket = u_bucket
         self.mixed_max_m = mixed_max_m if method == "refine" else 0
@@ -170,14 +177,16 @@ class DeviceTreeSolver:
 
     def _cfg(self, joined_m: int) -> join_mod.JoinConfig:
         if joined_m <= self.mixed_max_m:
-            return join_mod.JoinConfig(method="direct", dense_schur=True,
+            return join_mod.JoinConfig(method="direct", pin=self.pin,
+                                       dense_schur=True,
                                        info_dtype=torch.float32, with_res=True)
         if self.direct_min_m and joined_m >= self.direct_min_m:
-            return join_mod.JoinConfig(method="direct", dense_schur=True,
+            return join_mod.JoinConfig(method="direct", pin=self.pin,
+                                       dense_schur=True,
                                        info_dtype=torch.float64, with_res=True)
         top = joined_m >= self.top_min_m
         return join_mod.JoinConfig(
-            method=self.method, dense_schur=True,
+            method=self.method, pin=self.pin, dense_schur=True,
             refine_iters=self.top_iters if top else self.refine_iters,
             info_dtype=torch.float64, with_res=True,
             escalate_iters=self.top_iters if top else 0,
@@ -382,7 +391,17 @@ class DeviceTreeSolver:
         resume: restart from its newest one, when its shape is the plan's
         (the plan is rebuilt from `maps`, so they must be the same maps),
         else warn and start over. time_levels: record each level's device
-        wall into the metrics records (`exec_wall`, seconds)."""
+        wall into the metrics records (`exec_wall`, seconds). Direct mono
+        runs under `segment.deterministic()`."""
+        # on an H100 the direct mono solve's atomic sums moved its poses by
+        # up to 9.2e-6 from run to run, and the JAX package gives the same
+        # bits on every run; stereo moved 2e-13 and would pay 11-17%
+        # (PERF.md §6, ROADMAP queue 3 for what the fixed order costs)
+        fixed = self.datatype == "mono" and self.method == "direct"
+        with segment.deterministic() if fixed else contextlib.nullcontext():
+            return self._run(maps, metrics, ckpt_dir, resume, time_levels)
+
+    def _run(self, maps, metrics, ckpt_dir, resume, time_levels):
         t0 = time.perf_counter()
         stacked = compact_mod.compact_stack(maps, self.bucket, self.u_bucket)
         t1 = time.perf_counter()

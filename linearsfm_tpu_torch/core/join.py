@@ -35,27 +35,32 @@ from ..parallel import shard_solve
 
 
 class JoinConfig(NamedTuple):
-    method: str = "refine"    # "refine" (f32-preconditioned f64 PCG) | "direct"
-    refine_iters: int = 3
-    # Mono scale pin. "sign": condition the solve on the pinned coordinate's
-    # value (E -= S[:, fix] * sign), exact constrained fusion. "zero": drop
-    # the column as the reference C++ solver does, exact only when the
-    # pinned coordinate carries no information coupling.
-    pin: str = "sign"
-    # Schur assembly (ops/schur.assemble_schur): max W entries per feature
-    # for the grouped assembly, and dense_schur to assemble dense whatever
-    # the size (the device tree: it keeps no per-level max_obs); the host
-    # executor passes False and its exact max_obs.
+    """The reference's join configuration: its fields in its order, with
+    its defaults (the exact direct solve, grouped Schur assembly)."""
+
+    # max W entries per feature in the grouped Schur assembly
+    # (ops/schur.assemble_schur; the host executor counts it exactly)
     max_obs: int = 8
-    dense_schur: bool = True
+    # "direct" (Cholesky of the reduced system) | "refine" (stereo, mono
+    # pin "sign": the f32-preconditioned f64 PCG)
+    method: str = "direct"
+    refine_iters: int = 3
     # feature-sharded solve over a `parallel/mesh.Mesh` (single-pair joins:
     # the root levels); None = the single-device solve. mesh_axis names the
     # mesh's axis, as the reference's configuration does.
     mesh: object | None = None
     mesh_axis: str = "fs"
-    # information-path dtype (None = inherit); the solved state keeps the
-    # state dtype
-    info_dtype: torch.dtype | None = None
+    # Mono scale pin. "sign": condition the solve on the pinned coordinate's
+    # value (E -= S[:, fix] * sign), exact constrained fusion. "zero": drop
+    # the column as the reference C++ solver does, exact only when the
+    # pinned coordinate carries no information coupling.
+    pin: str = "sign"
+    # assemble the Schur system dense whatever its size (the device tree:
+    # it keeps no per-level max_obs)
+    dense_schur: bool = False
+    # information-path dtype: a torch dtype or its name ("float32",
+    # "float64"), None = inherit; the solved state keeps the state dtype
+    info_dtype: torch.dtype | str | None = None
     # method="refine" convergence control, see ops/schur.solve_full_mixed:
     # with_res returns (map, res_rel [P]); escalate_iters > 0 runs that many
     # more sweeps on lanes with res_rel > escalate_tol; exit_tol > 0 makes
@@ -121,7 +126,7 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
     feat_ids = feat_ids[:, :No]
 
     # ---- information blocks ------------------------------------------------
-    idt = cfg.info_dtype or end.U.dtype
+    idt = types.as_dtype(cfg.info_dtype) or end.U.dtype
     endU, endW, endV = end.U.to(idt), end.W.to(idt), end.V.to(idt)
     curU, curW, curV = cur.U.to(idt), cur.W.to(idt), cur.V.to(idt)
     U = torch.cat([endU, curU], dim=1)
@@ -203,10 +208,8 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     Mo, No = M1 + M2, N1 + N2
     dev = end.poses.device
 
-    pos1 = types.first_true(end.pose_ids == end.gauge.ref[:, None])
-    pos2 = types.first_true(end.pose_ids == end.gauge.scap[:, None])
-    cref = types.first_true(cur.pose_ids == cur.gauge.ref[:, None])
-    cscap = types.first_true(cur.pose_ids == cur.gauge.scap[:, None])
+    pos1, pos2 = end.ref_slot(), end.scap_slot()
+    cref, cscap = cur.ref_slot(), cur.scap_slot()
 
     # ---- angle wraparound on the scale-pose blocks -------------------------
     def with_angles(poses, slot, ang):
@@ -219,7 +222,7 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     cur_poses = with_angles(cur.poses, cscap, cur_ang)
 
     # ---- drop zero-information blocks touching the reference pose ---------
-    idt = cfg.info_dtype or end.U.dtype
+    idt = types.as_dtype(cfg.info_dtype) or end.U.dtype
 
     def drop_ref(lm, ref):
         keep_u = (lm.Uij[..., 0] != ref[:, None]) & (lm.Uij[..., 1] != ref[:, None])

@@ -6,7 +6,6 @@ the reference C++ solver (LinearSFMImp.cpp:97-112, :3136-3152).
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import time
@@ -16,33 +15,13 @@ import torch
 from .. import types
 from ..io import localmap as lio
 from ..ops import kernels
+from ..ops.segment import deterministic  # noqa: F401  (the solvers' scope)
+from ..parallel.mesh import solver_device
 from .dense_tree import DenseTreeSolver
 from .device_tree import DeviceTreeSolver
 from .tree import TreeSolver
 
 log = logging.getLogger("linearsfm_tpu_torch")
-
-
-@contextlib.contextmanager
-def deterministic():
-    """`torch.use_deterministic_algorithms` for the enclosed work: on the
-    GPU `index_add_` and `index_put_` then sum in a fixed order, so two
-    runs give the same bits. An operation without a fixed-order version
-    warns and runs as it is. cuBLAS wants a fixed workspace then
-    (CUBLAS_WORKSPACE_CONFIG=:4096:8, set for the enclosed work unless the
-    caller set it). The previous settings are restored."""
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    if env is None:
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-        if env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 def load_local_maps(path: str, num: int, datatype: str) -> list:
@@ -58,9 +37,10 @@ def run(path: str, num: int, datatype: str,
         progress: bool = True, solver=None,
         ckpt_dir: str | None = None, resume: bool = False,
         trace_dir: str | None = None, metrics=None,
-        executor: str = "host", *, device):
-    """Full run on `device`; returns (final map in host form, solve wall
-    in seconds).
+        executor: str = "host", *, device="cuda"):
+    """Full run on `device` (the card by default, `device="cpu"` for the
+    CPU; a CUDA device with no CUDA raises); returns (final map in host
+    form, solve wall in seconds).
 
     executor: "host" = the host-driven tree (`core/tree.TreeSolver`, per-level
     compaction on the host); "device" = the device-resident tree
@@ -74,10 +54,12 @@ def run(path: str, num: int, datatype: str,
     The pose, feature and state files are written as the reference does.
     Logged at INFO: the read time and the parser used, the solve wall, the
     solver's host phases, the solve's kernel launches, its peak device
-    memory (on a GPU) and the write time. The direct mono solve sums in a
-    fixed order (`deterministic`).
+    memory (on a GPU) and the write time. The device executor sums direct
+    mono in a fixed order (`ops/segment.deterministic`); the dense
+    executor's sums give the same poses on every run without it, and the
+    host executor keeps PyTorch's atomics (ROADMAP queue 3).
     """
-    device = torch.device(device)
+    device = solver_device(device, "pipeline.run")
     if solver is None:
         if executor == "device":
             solver = DeviceTreeSolver(datatype, method=method,
@@ -105,21 +87,16 @@ def run(path: str, num: int, datatype: str,
     elif ckpt_dir or resume:
         log.warning("checkpoint/resume requires the host or device executor; "
                     "ignoring")
-    # on an H100 the direct mono solve's atomic sums moved its poses by up
-    # to 7.4e-6 from run to run, and summing in a fixed order cost it no
-    # measurable wall; stereo moved 2e-13 and would pay 11-17% (PERF.md §6)
-    fixed_order = method == "direct" and datatype == "mono"
-    with deterministic() if fixed_order else contextlib.nullcontext():
-        if trace_dir:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            with torch.profiler.profile(activities=acts) as prof:
-                final = solver.run(maps, **kw)
-            os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        else:
+    if trace_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
             final = solver.run(maps, **kw)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    else:
+        final = solver.run(maps, **kw)
     final = types.host_fields(final)   # one copy of the root to the host
     wall = time.perf_counter() - t0
     log.info("Total Used Time:  %f  sec", wall)

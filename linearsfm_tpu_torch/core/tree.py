@@ -34,7 +34,7 @@ import torch
 from .. import types
 from ..ops import congruence
 from ..parallel import level as plevel
-from ..parallel.mesh import canonical
+from ..parallel.mesh import canonical, solver_device
 from ..utils import checkpoint
 from . import compact as compact_mod
 from . import join as join_mod
@@ -57,7 +57,8 @@ def _max_obs_per_feature(lm) -> int:
 
 class TreeSolver:
     """Runs the merge tree for one data type ("stereo" | "mono") on
-    `device` (explicit; nothing is picked by default).
+    `device` (keyword-only; the card by default, `device="cpu"` for the
+    CPU; a CUDA device with no CUDA raises).
 
     strategy: "level" (default) joins all pairs of a tree level as one
     lane-batched pass; "serial" one pair at a time, like the reference
@@ -74,7 +75,7 @@ class TreeSolver:
                  refine_iters: int = 3, bucket: int = 16, u_bucket: int = 64,
                  progress: bool = False, strategy: str = "level", mesh=None,
                  pin: str = "sign", root_mesh=None, root_shard_min: int = 256,
-                 *, device):
+                 *, device="cuda"):
         if datatype not in ("stereo", "mono"):
             raise ValueError(f"datatype must be 'stereo' or 'mono', got "
                              f"{datatype!r}")
@@ -82,7 +83,7 @@ class TreeSolver:
             raise ValueError(f"strategy must be 'level' or 'serial', got "
                              f"{strategy!r}")
         self.datatype = datatype
-        self.device = torch.device(device)
+        self.device = solver_device(device, "TreeSolver")
         for m in (mesh, root_mesh):
             if m is not None and canonical(device) != m.devices[0]:
                 raise ValueError(f"TreeSolver: device {device} is not the "

@@ -120,13 +120,14 @@ def stereo_jacobians(new_poses, new_feats, r_slot):
 
 
 def transform_map_stereo(lm: types.LocalMap, new_ref_id: torch.Tensor,
-                         info_dtype: torch.dtype | None = None
+                         info_dtype: torch.dtype | str | None = None
                          ) -> types.LocalMap:
     """Re-express each lane of `lm` in the frame of pose `new_ref_id[p]` and
     propagate its information matrix.
 
-    info_dtype: dtype of the congruence products (the information path); the
-    state and its Jacobians stay in the state dtype.
+    info_dtype: dtype of the congruence products (the information path), a
+    torch dtype or its name; the state and its Jacobians stay in the state
+    dtype.
     """
     P, M, N = lm.poses.shape[0], lm.M, lm.N
     dev = lm.poses.device
@@ -138,7 +139,7 @@ def transform_map_stereo(lm: types.LocalMap, new_ref_id: torch.Tensor,
     r_slot = types.first_true(new_ids == old_ref_id[:, None])
     Dp, Cp, Df, Cf = stereo_jacobians(new_poses, new_feats, r_slot)
 
-    idt = info_dtype or lm.U.dtype
+    idt = types.as_dtype(info_dtype) or lm.U.dtype
     em = congruence_emit(lm.U.to(idt), lm.Uij, lm.W.to(idt), lm.Wpf,
                          lm.V.to(idt), Dp.to(idt), Df.to(idt), Cp.to(idt),
                          Cf.to(idt), r_slot)
@@ -225,7 +226,7 @@ def mono_jacobians(new_poses, new_feats, r_slot, s_slot, p1, p2, old_fix,
 
 def transform_map_mono(lm: types.LocalMap, new_ref_id: torch.Tensor,
                        new_scap_id: torch.Tensor, new_fix: torch.Tensor,
-                       info_dtype: torch.dtype | None = None
+                       info_dtype: torch.dtype | str | None = None
                        ) -> types.LocalMap:
     """Re-express each lane of `lm` in the mono gauge (`new_ref_id[p]`,
     `new_scap_id[p]`, `new_fix[p]`) and propagate its information matrix.
@@ -239,15 +240,14 @@ def transform_map_mono(lm: types.LocalMap, new_ref_id: torch.Tensor,
         lm.pose_ids, lm.poses, lm.feats, new_ref_id, new_scap_id, new_fix)
 
     # the old gauge blocks, in the same slots (mono keeps every pose id)
-    r_slot = types.first_true(lm.pose_ids == old.ref[:, None])
-    s_slot = types.first_true(lm.pose_ids == old.scap[:, None])
+    r_slot, s_slot = lm.ref_slot(), lm.scap_slot()
     p1 = types.first_true(lm.pose_ids == new_ref_id[:, None])
     p2 = types.first_true(lm.pose_ids == new_scap_id[:, None])
     Dp, Cp, C2p, Df, Cf, C2f = mono_jacobians(new_poses, new_feats, r_slot,
                                               s_slot, p1, p2, old.fix,
                                               new_fix)
 
-    idt = info_dtype or lm.U.dtype
+    idt = types.as_dtype(info_dtype) or lm.U.dtype
     em = congruence_emit(lm.U.to(idt), lm.Uij, lm.W.to(idt), lm.Wpf,
                          lm.V.to(idt), Dp.to(idt), Df.to(idt), Cp.to(idt),
                          Cf.to(idt), r_slot, C2p=C2p.to(idt),

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import types
 from . import congruence, schur, solve
 from . import gauge as G
 from .schur import bmv, bmv_t
@@ -153,7 +154,7 @@ def transform_dense_stereo(dm: DenseMap, rs: torch.Tensor,
     """
     new_poses, new_feats = G.stereo_state_at(dm.poses, dm.feats, rs)
     Dp, Cp, Df, Cf = congruence.stereo_jacobians(new_poses, new_feats, rs)
-    idt = info_dtype or dm.A.dtype
+    idt = types.as_dtype(info_dtype) or dm.A.dtype
     A1, W1, V1 = _congruence_dense(*(t.to(idt) for t in (
         dm.A, dm.Wd, dm.V, Dp, Df, Cp, Cf)), rs)
     return DenseMap(new_poses, new_feats, A1, W1, V1, dm.sign)
@@ -172,7 +173,7 @@ def transform_dense_mono(dm: DenseMap, rs, ss, p1, p2, old_fix, new_fix,
                                                  new_fix)
     Dp, Cp, C2p, Df, Cf, C2f = congruence.mono_jacobians(
         new_poses, new_feats, rs, ss, p1, p2, old_fix, new_fix)
-    idt = info_dtype or dm.A.dtype
+    idt = types.as_dtype(info_dtype) or dm.A.dtype
     c = [t.to(idt) for t in (dm.A, dm.Wd, dm.V, Dp, Df, Cp, Cf, C2p, C2f)]
     A1, W1, V1 = _congruence_dense(*c[:7], rs, C2p=c[7], C2f=c[8], ss=ss)
     return DenseMap(new_poses, new_feats, A1, W1, V1,

@@ -67,6 +67,11 @@ def mat3_vec(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (R @ v[..., None])[..., 0]
 
 
+def compose_rrt(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """R1 @ R2^T (lmj_TimesRRT, LinearSFMImp.cpp:336-347)."""
+    return R1 @ R2.transpose(-1, -2)
+
+
 def wrap_angle_pi(x: torch.Tensor) -> torch.Tensor:
     """Wrap into (-REF_PI, REF_PI] by the reference's truncation-based
     single step: exact for |x| < 2 pi."""

@@ -303,7 +303,7 @@ def subtract_pairs(S, Yg, Wg, pg, M: int):
 
 
 def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
-                     max_obs: int = 1, force_dense: bool = True,
+                     max_obs: int = 1, force_dense: bool = False,
                      iters: int = 3, fixc=None, sign=None,
                      escalate_iters: int = 0, escalate_tol: float = 1e-8,
                      exit_tol: float = 0.0):
@@ -321,7 +321,8 @@ def solve_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask, *,
     Args (P lanes): U..eF the block lists and information vectors in the
       accumulation dtype; fixed_mask bool [P, 6M] (True = gauge-fixed);
       max_obs, force_dense: how the f32 Schur matrix is assembled
-      (`assemble_schur`; dense by default, as the device tree runs it);
+      (`assemble_schur`: grouped below `_DENSE_SCHUR_DIM` by default, as
+      the reference; the device tree's joins pass force_dense=True);
       fixc/sign [P]: mono scale pin (flat coordinate and its +-1 value).
       iters: PCG sweeps (a cap when exit_tol > 0). exit_tol > 0 stops each
       lane as soon as its squared residual is <= (exit_tol ||e||)^2; a lane

@@ -10,12 +10,38 @@ once: a segment index outside ``[0, num)`` is dropped (the reference's
 ``mode="drop"``; torch would raise or write out of bounds) by routing it to
 an extra slot that is sliced off. ``index_add_`` sums duplicates sequentially
 on the CPU and through atomics on a GPU, whose order changes from run to run:
-results there differ from run to run by float64 rounding only.
+results there differ from run to run by float64 rounding only, unless the
+work runs under `deterministic()`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms` for the enclosed work: on the
+    GPU `index_add_` and `index_put_` then sum in a fixed order, so two
+    runs give the same bits. An operation without a fixed-order version
+    warns and runs as it is. cuBLAS wants a fixed workspace then
+    (CUBLAS_WORKSPACE_CONFIG=:4096:8, set for the enclosed work unless the
+    caller set it). The previous settings are restored, so scopes nest."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 def lane_ids(P: int, device) -> torch.Tensor:

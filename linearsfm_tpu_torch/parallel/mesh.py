@@ -71,6 +71,16 @@ def canonical(dev) -> torch.device:
     return dev
 
 
+def solver_device(device, who: str) -> torch.device:
+    """`device` of an entry point, `canonical`; a CUDA device with no CUDA
+    raises (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device=\"cpu\" to "
+                           f"solve on the CPU")
+    return canonical(device)
+
+
 def feature_window(N: int, nd: int) -> int:
     """Features per shard, Nl = ceil(N / nd): shard d owns [d Nl, d Nl + Nl)."""
     return (N + nd - 1) // nd

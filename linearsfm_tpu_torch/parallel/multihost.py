@@ -75,23 +75,17 @@ def _carry_regauge_positions(o: int, used: int, L: int):
     return [o >> lv for lv in range(used + 1, L + 1)]
 
 
-def _device(solver_kw: dict | None):
-    kw = solver_kw or {}
-    if "device" not in kw:
-        raise ValueError("multihost: solver_kw must name the device")
-    return kw["device"]
-
-
 def local_phase(maps: list, datatype: str, n_hosts: int, host_id: int,
                 solver_kw: dict | None = None) -> list:
     """Reduce this host's blocks; returns the block roots (host form) in
-    block order. solver_kw: `DeviceTreeSolver` arguments, `device`
-    included."""
+    block order. solver_kw: `DeviceTreeSolver` arguments (`device`: the
+    card by default)."""
     from ..core.tree import TreeSolver
     L, block, owners = plan_chunks(len(maps), n_hosts)
     b_lo, b_hi = owners[host_id]
     # host-side transform for the idle-carry re-gauges
-    ts = TreeSolver(datatype, device=_device(solver_kw))
+    solver_kw = solver_kw or {}
+    ts = TreeSolver(datatype, device=solver_kw.get("device", "cuda"))
     roots = []
     for lo, hi in _block_spans(len(maps), block, b_lo, b_hi):
         span = maps[lo:hi]
@@ -189,8 +183,8 @@ def run_multihost(maps: list, datatype: str, n_hosts: int | None = None,
     (`local_stacked`); by default `torch.distributed.all_gather_object`
     over the process group. n_hosts, host_id: by default the group's world
     size and this process's rank, or 1 and 0 without a group. solver_kw:
-    `DeviceTreeSolver` arguments, `device` included."""
-    _device(solver_kw)
+    `DeviceTreeSolver` arguments (`device`: the card by default)."""
+    solver_kw = solver_kw or {}
     if n_hosts is None or host_id is None:
         import torch.distributed as dist
         grouped = dist.is_available() and dist.is_initialized()

@@ -1,9 +1,9 @@
-"""Two measurements of the direct (float64 Cholesky) paths at 2,048 maps,
+"""Measurements of the direct (float64 Cholesky) paths at 2,048 maps,
 one GPU.
 
     python3 -m linearsfm_tpu_torch.tools.direct_paths [--parts schur,ate]
         [--paths stereo,mono] [--reps 3] [--out direct_paths_out]
-        [--maps 2048] [--cpu]
+        [--maps 2048] [--exec device,dense,host] [--profile] [--cpu]
 
 The data is `chip_smoke.py`'s 2,048-map covis set (seed 7, noise 0.005,
 covis radius 6, at most 6 co-visible features per map).
@@ -31,6 +31,17 @@ condition number of the root's reduced system over its free coordinates
 CUBLAS_WORKSPACE_CONFIG=:4096:8 is set for the whole process, as the
 deterministic mode requires.
 
+order: each executor's (--exec device,dense,host) direct solve timed
+with PyTorch's default sums and in a fixed order
+(`ops/segment.deterministic`), in --reps warm pairs after a warm-up run,
+default first in the even pairs and fixed first in the odd ones: walls
+(the device and dense executors' level walls too), ATEs, the pose spread
+within each mode and the median of the pairs' fixed / default ratios.
+The executors' own scope is turned off while it runs (the mode decides).
+--profile adds one run of each mode under torch.profiler: the device time
+of the segment sums (`index_add_`, `index_put_`) and of the fills of
+uninitialized memory.
+
 The card's name and power limit come first; one JSON file per part goes to
 --out. --cpu (with a small --maps) rehearses the tool on the CPU.
 """
@@ -38,6 +49,7 @@ The card's name and power limit come first; one JSON file per part goes to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -49,6 +61,20 @@ import warnings
 
 ORACLE_ATE_2048 = {"stereo": 0.009758730, "mono": 0.014352172}
 _run = {"device": "cuda", "maps": 2048}
+
+
+@contextlib.contextmanager
+def _own_scope_off():
+    """The executors' own fixed-order scope (`ops/segment.deterministic`,
+    entered by the device and dense executors for direct mono) replaced by
+    a no-op while active; yields the real scope, for the caller's mode."""
+    from linearsfm_tpu_torch.ops import segment
+    scope = segment.deterministic
+    segment.deterministic = contextlib.nullcontext
+    try:
+        yield scope
+    finally:
+        segment.deterministic = scope
 
 
 def _sync():
@@ -177,13 +203,19 @@ def _root_condition(captured):
 def ate_part(datatype, reps):
     """Run-to-run spread of the direct device executor, default and
     deterministic; returns the runs' ATEs and pose spreads."""
-    import torch
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
-    from linearsfm_tpu_torch.ops import solve
 
     maps, poses_gt = _dataset(datatype)
     solver = DeviceTreeSolver(datatype, method="direct",
                               device=_run["device"])
+    with _own_scope_off():             # the mode below decides
+        return _ate_runs(solver, maps, poses_gt, datatype, reps)
+
+
+def _ate_runs(solver, maps, poses_gt, datatype, reps):
+    import torch
+    from linearsfm_tpu_torch.ops import solve
+
     solver.run(maps)                   # warm-up
     out = dict(datatype=datatype, oracle=ORACLE_ATE_2048[datatype])
     for mode in ("default", "deterministic"):
@@ -238,6 +270,109 @@ def ate_part(datatype, reps):
     return out
 
 
+_SUM_OPS = ("aten::index_add_", "aten::index_put_", "aten::fill_")
+
+
+def _order_run(solver, maps, scope, metrics=None):
+    """One timed run under `scope`: (poses by id, wall, level walls sum or
+    None; the host executor has no level walls)."""
+    from linearsfm_tpu_torch.core.tree import TreeSolver
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+    metrics = LevelMetrics() if metrics is None else metrics
+    kw = {} if isinstance(solver, TreeSolver) else dict(time_levels=True)
+    _sync()
+    t0 = time.perf_counter()
+    with scope():
+        p = _poses(solver.run(maps, metrics=metrics, **kw))
+    _sync()
+    wall = time.perf_counter() - t0
+    lv = [r["exec_wall"] for r in metrics.records if "exec_wall" in r]
+    return p, wall, sum(lv) if lv else None
+
+
+def _order_profile(solver, maps, scope):
+    """Device time (ms) and calls of the segment sums and fills in one
+    profiled run under `scope`."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if _run["device"] == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        _order_run(solver, maps, scope)
+    ka = prof.key_averages()
+    return {e.key: dict(calls=e.count,
+                        device_ms=e.device_time_total / 1e3,
+                        cpu_ms=e.cpu_time_total / 1e3)
+            for e in ka if e.key in _SUM_OPS}
+
+
+def order_part(datatype, reps):
+    """Wall of each --exec executor's direct solve with PyTorch's default
+    sums against the same solve under `ops/segment.deterministic()`, in
+    --reps warm pairs (default first in even pairs, fixed first in odd);
+    returns per executor the walls, level walls, ATEs, pose spreads, the
+    median of the pairs' fixed / default ratios and (--profile) the sums'
+    device time by mode."""
+    from linearsfm_tpu_torch.core.dense_tree import DenseTreeSolver
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.core.tree import TreeSolver
+
+    classes = {"device": DeviceTreeSolver, "dense": DenseTreeSolver,
+               "host": TreeSolver}
+    maps, poses_gt = _dataset(datatype)
+    out = dict(datatype=datatype, maps=_run["maps"])
+    for ex in _run["exec"]:
+        solver = classes[ex](datatype, method="direct", device=_run["device"])
+        with _own_scope_off() as fixed:
+            scopes = {"default": contextlib.nullcontext, "fixed": fixed}
+            _order_run(solver, maps, scopes["default"])       # warm-up
+            runs = {"default": [], "fixed": []}
+            for rep in range(reps):
+                for mode in (("default", "fixed") if rep % 2 == 0
+                             else ("fixed", "default")):
+                    p, wall, lv = _order_run(solver, maps, scopes[mode])
+                    first = runs[mode][0]["poses"] if runs[mode] else p
+                    r = dict(poses=p, wall_s=wall, levels_s=lv,
+                             ate=_ate(p, poses_gt),
+                             max_pose_diff_vs_first=_max_diff(p, first))
+                    runs[mode].append(r)
+                    lvs = "" if lv is None else f", level walls {lv:.4f} s"
+                    print(f"order {datatype} {ex} {mode} pair {rep}: wall "
+                          f"{wall:.4f} s{lvs}, ATE {r['ate']:.12f}, max pose "
+                          f"diff vs the mode's first run "
+                          f"{r['max_pose_diff_vs_first']:.3e}", flush=True)
+            prof = ({m: _order_profile(solver, maps, scopes[m])
+                     for m in scopes} if _run["profile"] else None)
+        rec = {}
+        for mode, rs in runs.items():
+            rec[mode] = dict(walls_s=[r["wall_s"] for r in rs],
+                             levels_s=[r["levels_s"] for r in rs],
+                             ates=[r["ate"] for r in rs],
+                             max_pose_diff=max(r["max_pose_diff_vs_first"]
+                                               for r in rs))
+        ratios = [f / d - 1 for d, f in zip(rec["default"]["walls_s"],
+                                            rec["fixed"]["walls_s"])]
+        rec["pair_ratios"] = ratios
+        rec["fixed_vs_default_median"] = statistics.median(ratios)
+        print(f"order {datatype} {ex}: {reps} pairs, median wall default "
+              f"{statistics.median(rec['default']['walls_s']):.4f} s, fixed "
+              f"{statistics.median(rec['fixed']['walls_s']):.4f} s, median "
+              f"pair ratio {rec['fixed_vs_default_median']:+.2%} (min "
+              f"{min(ratios):+.2%}, max {max(ratios):+.2%}); pose spread "
+              f"default {rec['default']['max_pose_diff']:.3e}, fixed "
+              f"{rec['fixed']['max_pose_diff']:.3e}", flush=True)
+        if prof is not None:
+            rec["profile"] = prof
+            for mode, ops in prof.items():
+                print(f"order {datatype} {ex} profile {mode}: " + "; ".join(
+                    f"{k} {v['calls']} calls, device {v['device_ms']:.3f} ms"
+                    f", cpu {v['cpu_ms']:.3f} ms" for k, v in ops.items()),
+                    flush=True)
+        out[ex] = rec
+        del solver
+    return out
+
+
 def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -247,10 +382,16 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default="direct_paths_out")
     ap.add_argument("--maps", type=int, default=2048)
+    ap.add_argument("--exec", default="device",
+                    help="the executors of the order part, comma-separated "
+                         "(device, dense, host)")
+    ap.add_argument("--profile", action="store_true",
+                    help="the order part also profiles one run of each mode")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    _run.update(device="cpu" if args.cpu else "cuda", maps=args.maps)
+    _run.update(device="cpu" if args.cpu else "cuda", maps=args.maps,
+                exec=args.exec.split(","), profile=args.profile)
     if not args.cpu and not torch.cuda.is_available():
         print("direct_paths: no CUDA device", file=sys.stderr)
         return 2
@@ -260,7 +401,7 @@ def main(argv=None) -> int:
                              text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
-    parts = {"schur": schur_part, "ate": ate_part}
+    parts = {"schur": schur_part, "ate": ate_part, "order": order_part}
     for part in args.parts.split(","):
         rep = [parts[part](d, args.reps) for d in args.paths.split(",")]
         with open(os.path.join(args.out, f"direct_paths_{part}.json"),

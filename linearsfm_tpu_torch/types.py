@@ -110,6 +110,40 @@ class LocalMap:
     def feat_mask(self) -> torch.Tensor:
         return self.feat_ids >= 0
 
+    def u_mask(self) -> torch.Tensor:
+        """Valid U entries: the first n_U of each lane."""
+        return (torch.arange(self.KU, device=self.U.device)
+                < torch.as_tensor(self.n_U)[..., None])
+
+    def w_mask(self) -> torch.Tensor:
+        """Valid W entries: the first n_W of each lane."""
+        return (torch.arange(self.KW, device=self.W.device)
+                < torch.as_tensor(self.n_W)[..., None])
+
+    def ref_slot(self) -> torch.Tensor:
+        """Slot of the pose tagged with the gauge reference id."""
+        return first_true(self.pose_ids
+                          == torch.as_tensor(self.gauge.ref)[..., None])
+
+    def scap_slot(self) -> torch.Tensor:
+        """Slot of the pose tagged with the gauge scale pose id (mono)."""
+        return first_true(self.pose_ids
+                          == torch.as_tensor(self.gauge.scap)[..., None])
+
+    def pad_to(self, M=None, N=None, KU=None, KW=None) -> "LocalMap":
+        """`pad_to` of this host-form map; a capacity left None stays."""
+        return pad_to(self, M or self.M, N or self.N, KU or self.KU,
+                      KW or self.KW)
+
+
+def as_dtype(dtype) -> torch.dtype | None:
+    """A torch dtype from a torch dtype, a numpy dtype or its name
+    ("float32", as the reference's configurations give it); None stays
+    None (inherit)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis, 0 if none: the

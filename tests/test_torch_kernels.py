@@ -719,7 +719,8 @@ def test_sharded_full_mixed_on_cuda():
     assert kernels.launches["inv3x3_sym"] - n0["inv3x3_sym"] == 4
     assert (kernels.launches["blockcoo_to_dense"]
             - n0["blockcoo_to_dense"]) == 12
-    want = schur.solve_full_mixed(*ops, M, fixed, iters=16)
+    want = schur.solve_full_mixed(*ops, M, fixed, force_dense=True,
+                                  iters=16)
     torch.testing.assert_close(xp, want[0], atol=1e-9, rtol=0)
     torch.testing.assert_close(xf, want[1], atol=1e-9, rtol=0)
     assert float(res[0]) < 1e-10

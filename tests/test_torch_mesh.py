@@ -112,7 +112,7 @@ def test_sharded_full_mixed_matches_reference(datatype):
     assert float(res[0]) < 1e-10 and float(jres) < 1e-10
     one = tschur.solve_full_mixed(
         t["U"], t["Uij"], t["W"], t["Wpf"], t["V"], t["eP"], t["eF"], M,
-        lane(fixed), **tpin, **kw)
+        lane(fixed), force_dense=True, **tpin, **kw)
     np.testing.assert_allclose(xp.numpy(), one[0].numpy(), atol=1e-9)
     if fixc is not None:
         assert float(xp.reshape(-1)[fixc]) == sign

@@ -33,6 +33,7 @@ from linearsfm_tpu_torch.core import plan as tplan
 from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver as TorchTree
 from linearsfm_tpu_torch.ops import congruence as tcong
 from linearsfm_tpu_torch.ops import gauge as tgauge
+from linearsfm_tpu_torch.ops import schur as tschur
 from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
 CPU = torch.device("cpu")
@@ -211,9 +212,9 @@ def test_join_mono_matches_reference(method, pin):
     """Ids and block lists exact, solved states to 1e-9, the pinned
     coordinate exactly at sign, dead slots and counts as the reference's."""
     a, b = _join_pair()
-    kw = dict(method=method, pin=pin, refine_iters=4, with_res=True)
-    want, res_j = jjoin.join_mono(a, b, jjoin.JoinConfig(
-        max_obs=8, dense_schur=True, **kw))
+    kw = dict(method=method, pin=pin, refine_iters=4, with_res=True,
+              max_obs=8, dense_schur=True)
+    want, res_j = jjoin.join_mono(a, b, jjoin.JoinConfig(**kw))
     got, res_t = tjoin.join_mono(one_lane_map(a), one_lane_map(b),
                                  tjoin.JoinConfig(**kw))
     g = types.to_numpy(types.lanes(got, 0))
@@ -233,6 +234,47 @@ def test_join_mono_matches_reference(method, pin):
         assert float(res_t[0]) < 1e-10 and float(res_j) < 1e-10
     else:
         assert np.isnan(float(res_t[0])) and np.isnan(float(res_j))
+
+
+@pytest.mark.parametrize("form", ["default", "max_obs"])
+def test_join_mono_default_config_is_direct(form, monkeypatch):
+    """`join_mono(a, b)` and `join_mono(a, b, JoinConfig(max_obs=8))` take
+    the JAX package's exact direct solve: no PCG call
+    (`schur.solve_full_mixed`), states within 1e-9 of the reference's."""
+    a, b = _join_pair()
+    args = () if form == "default" else (tjoin.JoinConfig(max_obs=8),)
+    jargs = () if form == "default" else (jjoin.JoinConfig(max_obs=8),)
+    pcg = []
+    solve = tschur.solve_full_mixed
+    monkeypatch.setattr(tschur, "solve_full_mixed",
+                        lambda *a, **k: pcg.append(1) or solve(*a, **k))
+    got = types.to_numpy(types.lanes(
+        tjoin.join_mono(one_lane_map(a), one_lane_map(b), *args), 0))
+    want = jjoin.join_mono(a, b, *jargs)
+    assert not pcg
+    np.testing.assert_array_equal(got.pose_ids, np.asarray(want.pose_ids))
+    np.testing.assert_allclose(got.poses, np.asarray(want.poses), atol=1e-9)
+    np.testing.assert_allclose(got.feats, np.asarray(want.feats), atol=1e-9)
+
+
+def test_local_map_helpers_match_reference():
+    """The LocalMap helpers u_mask, w_mask, ref_slot, scap_slot and pad_to
+    give the reference's answers (ref 3, scap 4: not the first slots)."""
+    lm = H.random_mono_map(np.random.default_rng(4), M=6, N=5, pose_id0=0,
+                           ref_id=3, scap_id=4)
+    jl = lm.pad_to(M=8, N=9, KU=lm.KU + 3, KW=lm.KW + 2)
+    tl = types.host_fields(lm).pad_to(M=8, N=9, KU=lm.KU + 3, KW=lm.KW + 2)
+    for f in types.MAP_FIELDS:
+        np.testing.assert_array_equal(getattr(tl, f),
+                                      np.asarray(getattr(jl, f)), err_msg=f)
+    assert types.host_fields(lm).pad_to().M == lm.M
+    w = types.to_torch(jl, CPU)
+    for f in ("u_mask", "w_mask", "ref_slot", "scap_slot"):
+        np.testing.assert_array_equal(getattr(w, f)().numpy(),
+                                      np.asarray(getattr(jl, f)()), err_msg=f)
+    assert int(w.ref_slot()) == 3 and int(w.scap_slot()) == 4
+    st = one_lane_map(jl)
+    assert st.u_mask().shape == (1, jl.KU) and st.ref_slot().tolist() == [3]
 
 
 @pytest.mark.parametrize("dense", [True, False])
@@ -300,6 +342,33 @@ def test_device_tree_mono_matches_reference(method):
     assert [r["level"] for r in metrics.records] == [1, 2, 3, 4]
     if method == "refine":
         assert max(r["res_max"] for r in metrics.records) < 1e-10
+
+
+@pytest.mark.parametrize("method", ["direct", "refine"])
+def test_device_tree_mono_pin_zero_matches_reference(method, monkeypatch):
+    """The reference's positional call form with pin="zero" (the reference
+    C++ solver's column drop) on the 11-map mono set: every join gets the
+    pin, refine solves the reduced system (an f32 factor with refinement
+    sweeps, no PCG), and the slots, poses and features are within 1e-9 of
+    the JAX package's."""
+    n = 11
+    maps, _, _ = gen.make_dataset(n, "mono", noise=0.01, seed=5)
+    a = JaxTree("mono", method, 3, 16, 64, "zero").run(
+        [m.to_local_map() for m in maps])
+    pins, pcg = [], []
+    join, solve = tjoin.join_mono, tschur.solve_full_mixed
+    monkeypatch.setattr(tjoin, "join_mono",
+                        lambda e, c, cfg: pins.append(cfg.pin) or join(e, c,
+                                                                       cfg))
+    monkeypatch.setattr(tschur, "solve_full_mixed",
+                        lambda *a, **k: pcg.append(1) or solve(*a, **k))
+    solver = TorchTree("mono", method, 3, 16, 64, "zero", device=CPU)
+    b = types.to_numpy(solver.run(maps))
+    assert set(pins) == {"zero"} and not pcg
+    np.testing.assert_array_equal(b.pose_ids, np.asarray(a.pose_ids))
+    np.testing.assert_array_equal(b.feat_ids, np.asarray(a.feat_ids))
+    np.testing.assert_allclose(b.poses, np.asarray(a.poses), atol=1e-9)
+    np.testing.assert_allclose(b.feats, np.asarray(a.feats), atol=1e-9)
 
 
 def test_device_tree_mono_recovers_noise_free_truth():

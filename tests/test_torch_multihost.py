@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import helpers as H  # noqa: F401
 from synth import generate as gen
@@ -87,8 +88,12 @@ def test_plan_chunks_matches_reference(n_hosts):
         TMH.plan_chunks(0, n_hosts)
 
 
-def test_multihost_needs_a_device():
-    with pytest.raises(ValueError, match="device"):
+def test_multihost_needs_a_device(monkeypatch):
+    """With no device in solver_kw the solve asks for the card, as every
+    entry point does; with no CUDA device it raises, naming device="cpu",
+    and does not solve on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         TMH.run_multihost(_dataset(4, "stereo"), "stereo", n_hosts=1,
                           solver_kw=dict(method="direct"))
 

@@ -7,6 +7,8 @@ Tolerances are stated per test: float64 paths agree to rounding (1e-12),
 float32 assemblies to rtol 1e-5, PCG solutions to what the solve converges to.
 """
 
+from functools import partial
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -56,6 +58,11 @@ def test_rotations_match_reference():
     np.testing.assert_allclose(trot.r_to_euler_t(t64(R_j)).numpy(),
                                np.asarray(jrot.r_to_euler_t(jnp.asarray(R_j))),
                                atol=1e-12)
+    R2 = R_j[::-1].copy()
+    np.testing.assert_allclose(
+        trot.compose_rrt(t64(R_j), t64(R2)).numpy(),
+        np.asarray(jrot.compose_rrt(jnp.asarray(R_j), jnp.asarray(R2))),
+        atol=1e-15)
 
 
 @pytest.mark.parametrize("beta", [np.pi / 2, -np.pi / 2])
@@ -311,8 +318,9 @@ def test_solve_full_mixed_matches_dense_f64():
     """f32 Schur + f64 PCG recovers the dense f64 solution (1e-9), and
     agrees with the reference's dense-assembly solve to 1e-9."""
     sys_, x_true = _system(52, 12, 30, 4)
-    xp0, xf0, _ = tschur.solve_full_mixed(*_torch_args(sys_), iters=0)
-    xp, xf, res = tschur.solve_full_mixed(*_torch_args(sys_), iters=4)
+    args = _torch_args(sys_)
+    xp0, xf0, _ = tschur.solve_full_mixed(*args, force_dense=True, iters=0)
+    xp, xf, res = tschur.solve_full_mixed(*args, force_dense=True, iters=4)
     e0 = np.abs(_flat(xp0[0], xf0[0]) - x_true).max()
     er = np.abs(_flat(xp[0], xf[0]) - x_true).max()
     assert er < 1e-9, (e0, er)
@@ -330,7 +338,8 @@ def test_solve_full_mixed_pinned_coordinate():
     fixed = np.zeros(6 * 6, bool)
     fixed[fixc] = True
     xp, xf, _ = tschur.solve_full_mixed(
-        *_torch_args(sys_, fixed), iters=4, fixc=torch.tensor([fixc]),
+        *_torch_args(sys_, fixed), force_dense=True, iters=4,
+        fixc=torch.tensor([fixc]),
         sign=torch.tensor([sign], dtype=torch.float64))
     got = _flat(xp[0], xf[0])
     assert got[fixc] == sign
@@ -348,26 +357,27 @@ def test_solve_full_mixed_residual_escalation_and_exit():
     recurrence)."""
     sys_, _ = _system(54, 10, 24, 4)
     args = _torch_args(sys_)
-    _, _, r0 = tschur.solve_full_mixed(*args, iters=0)
-    xp4, xf4, r4 = tschur.solve_full_mixed(*args, iters=4)
+    solve = partial(tschur.solve_full_mixed, force_dense=True)
+    _, _, r0 = solve(*args, iters=0)
+    xp4, xf4, r4 = solve(*args, iters=4)
     assert float(r4[0]) < float(r0[0]) * 1e-3
     assert float(r4[0]) < 1e-10
     _, _, r4j = jschur.solve_full_mixed(*_jax_args(sys_), force_dense=True,
                                         iters=4)
     assert abs(float(r4[0]) - float(r4j)) < 1e-12
 
-    xpe, xfe, re_ = tschur.solve_full_mixed(*args, iters=1, escalate_iters=3,
+    xpe, xfe, re_ = solve(*args, iters=1, escalate_iters=3,
                                             escalate_tol=0.0)
     assert torch.equal(xpe, xp4) and torch.equal(xfe, xf4)
     assert torch.equal(re_, r4)
-    xp1, _, r1 = tschur.solve_full_mixed(*args, iters=1)
-    xps, _, rs = tschur.solve_full_mixed(*args, iters=1, escalate_iters=3,
+    xp1, _, r1 = solve(*args, iters=1)
+    xps, _, rs = solve(*args, iters=1, escalate_iters=3,
                                          escalate_tol=1e30)
     assert torch.equal(xps, xp1) and torch.equal(rs, r1)
 
     tol = 1e-10
-    xpw, xfw, rw = tschur.solve_full_mixed(*args, iters=16, exit_tol=tol)
-    runs = [tschur.solve_full_mixed(*args, iters=k) for k in range(17)]
+    xpw, xfw, rw = solve(*args, iters=16, exit_tol=tol)
+    runs = [solve(*args, iters=k) for k in range(17)]
     same = [k for k, (xp, xf, _) in enumerate(runs)
             if torch.equal(xp, xpw) and torch.equal(xf, xfw)]
     assert same and same[0] < 16, "the system converges before the cap"
@@ -391,7 +401,8 @@ def test_solve_full_mixed_lanes_freeze_like_vmap():
                zip(*[_torch_args(s)[:7] for s in systems])]
     fixed = torch.zeros((3, 6 * 8), dtype=torch.bool)
     kw = dict(iters=16, exit_tol=1e-13, escalate_iters=16, escalate_tol=1e-8)
-    xp, xf, res = tschur.solve_full_mixed(*stacked[:7], 8, fixed, **kw)
+    xp, xf, res = tschur.solve_full_mixed(*stacked[:7], 8, fixed,
+                                          force_dense=True, **kw)
 
     jargs = [jnp.stack([jnp.asarray(_jax_args(s)[i]) for s in systems])
              for i in range(7)]
@@ -402,7 +413,8 @@ def test_solve_full_mixed_lanes_freeze_like_vmap():
     np.testing.assert_allclose(xf.numpy(), np.asarray(xfj), atol=1e-9)
     assert (res.numpy() <= 1e-12).all() and (np.asarray(resj) <= 1e-12).all()
     for k, s in enumerate(systems):
-        xpk, xfk, _ = tschur.solve_full_mixed(*_torch_args(s), **kw)
+        xpk, xfk, _ = tschur.solve_full_mixed(*_torch_args(s),
+                                              force_dense=True, **kw)
         np.testing.assert_allclose(xp[k].numpy(), xpk[0].numpy(), atol=1e-12)
         np.testing.assert_allclose(xf[k].numpy(), xfk[0].numpy(), atol=1e-12)
 
@@ -416,6 +428,7 @@ def test_solve_full_mixed_failed_factor_lane_is_nan():
     stacked = [torch.cat(parts) for parts in
                zip(_torch_args(good)[:7], _torch_args(bad)[:7])]
     fixed = torch.zeros((2, 6 * 12), dtype=torch.bool)
-    xp, xf, res = tschur.solve_full_mixed(*stacked, 12, fixed, iters=2)
+    xp, xf, res = tschur.solve_full_mixed(*stacked, 12, fixed,
+                                          force_dense=True, iters=2)
     assert torch.isfinite(xp[0]).all() and float(res[0]) < 1e-6
     assert torch.isnan(res[1])

@@ -32,8 +32,10 @@ from linearsfm_tpu_torch import cli as tcli
 from linearsfm_tpu_torch import native as tnative
 from linearsfm_tpu_torch import types
 from linearsfm_tpu_torch.core import pipeline as tpipeline
+from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
 from linearsfm_tpu_torch.core.tree import TreeSolver
 from linearsfm_tpu_torch.io import localmap as tio
+from linearsfm_tpu_torch.ops import segment as tsegment
 from linearsfm_tpu_torch.utils import debug as tdebug
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -228,10 +230,15 @@ def test_pipeline_run_matches_reference(tmp_path, executor):
 
 
 def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
-    """`pipeline.run` solves direct mono, and only that, under
-    `deterministic()`, which restores the caller's settings and
-    CUBLAS_WORKSPACE_CONFIG on the way out."""
+    """The device executor runs direct mono, and only that, under
+    `deterministic()` (`ops/segment`, also `pipeline.deterministic`), which
+    restores the caller's settings and CUBLAS_WORKSPACE_CONFIG on the way
+    out; `pipeline.run` gets it from the solver. The host and dense
+    executors do not enter it: on the card it cost the host executor more
+    than half its wall, and the dense executor's default sums already give
+    the same poses on every run (PERF.md §6)."""
     monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    assert tpipeline.deterministic is tsegment.deterministic
     before = torch.are_deterministic_algorithms_enabled()
     with tpipeline.deterministic():
         assert torch.are_deterministic_algorithms_enabled()
@@ -239,22 +246,55 @@ def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
     assert torch.are_deterministic_algorithms_enabled() == before
     assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
     seen = []
-    scope = tpipeline.deterministic
+    scope = tsegment.deterministic
 
     def record():
         seen.append(True)
         return scope()
-    monkeypatch.setattr(tpipeline, "deterministic", record)
+    monkeypatch.setattr(tsegment, "deterministic", record)
     for datatype in ("mono", "stereo"):
         maps, _, _ = gen.make_dataset(3, datatype, noise=0.005, seed=0)
         data = str(tmp_path / datatype)
         tio.write_dataset(maps, data)
         for method in ("direct", "refine"):
-            seen.clear()
-            tpipeline.run(data, 3, datatype, method=method, progress=False,
-                          executor="device", device="cpu")
-            assert seen == ([True] if (datatype, method)
-                            == ("mono", "direct") else [])
+            for executor in ("device", "host", "dense"):
+                seen.clear()
+                tpipeline.run(data, 3, datatype, method=method,
+                              progress=False, executor=executor,
+                              device="cpu")
+                assert seen == ([True] if (datatype, method, executor)
+                                == ("mono", "direct", "device") else []), (
+                    executor)
+
+
+@pytest.mark.parametrize("caller", [(False, False), (True, False),
+                                    (True, True)])
+def test_device_tree_run_restores_deterministic_settings(caller,
+                                                         monkeypatch):
+    """`DeviceTreeSolver.run` of direct mono, called with no pipeline,
+    sums in a fixed order and leaves the caller's deterministic settings
+    (mode, warn-only) and CUBLAS_WORKSPACE_CONFIG as it found them."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":16:8")
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    maps, _, _ = gen.make_dataset(3, "mono", noise=0.005, seed=0)
+    inside = []
+    scope = tsegment.deterministic
+
+    def record():
+        inside.append(True)
+        return scope()
+    monkeypatch.setattr(tsegment, "deterministic", record)
+    torch.use_deterministic_algorithms(caller[0], warn_only=caller[1])
+    try:
+        DeviceTreeSolver("mono", method="direct", device="cpu").run(maps)
+        assert inside == [True]
+        assert (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled()
+                ) == caller
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":16:8"
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
 def test_cli_arguments_and_device(tmp_path, capsys):

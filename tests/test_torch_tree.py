@@ -27,6 +27,8 @@ from linearsfm_tpu_torch.core import dcompact as tdcompact
 from linearsfm_tpu_torch.core import join as tjoin
 from linearsfm_tpu_torch.core import plan as tplan
 from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver as TorchTree
+from linearsfm_tpu_torch.ops import schur as tschur
+from linearsfm_tpu_torch.parallel import level as tlevel
 from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
 CPU = torch.device("cpu")
@@ -41,16 +43,24 @@ def _by_id(ids, vals):
             for s, i in enumerate(np.asarray(ids)) if i >= 0}
 
 
+def _stereo_pair():
+    """Two stereo maps (3 + 3 poses) in one gauge with shared features."""
+    rng = np.random.default_rng(10)
+    a = H.random_stereo_map(rng, M=3, N=6, pose_id0=1, feat_id0=1000,
+                            ref_id=0)
+    b = H.random_stereo_map(rng, M=3, N=7, pose_id0=10, feat_id0=1003,
+                            ref_id=0)
+    return a, b
+
+
 @pytest.mark.parametrize("method", ["refine", "direct"])
 def test_join_stereo_matches_reference(method):
     """Two maps in one gauge with shared features: ids exact, block lists
     exact (concatenations), solved states to 1e-9."""
-    rng = np.random.default_rng(10)
-    a = H.random_stereo_map(rng, M=3, N=6, pose_id0=1, feat_id0=1000, ref_id=0)
-    b = H.random_stereo_map(rng, M=3, N=7, pose_id0=10, feat_id0=1003, ref_id=0)
-    kw = dict(method=method, refine_iters=4, with_res=True)
-    want, res_j = jjoin.join_stereo(a, b, jjoin.JoinConfig(
-        max_obs=8, dense_schur=True, **kw))
+    a, b = _stereo_pair()
+    kw = dict(method=method, refine_iters=4, with_res=True, max_obs=8,
+              dense_schur=True)
+    want, res_j = jjoin.join_stereo(a, b, jjoin.JoinConfig(**kw))
     got, res_t = tjoin.join_stereo(one_lane(a), one_lane(b),
                                    tjoin.JoinConfig(**kw))
     g = types.to_numpy(types.lanes(got, 0))
@@ -67,6 +77,71 @@ def test_join_stereo_matches_reference(method):
         assert float(res_t[0]) < 1e-10 and float(res_j) < 1e-10
     else:
         assert np.isnan(float(res_t[0])) and np.isnan(float(res_j))
+
+
+def test_join_config_matches_reference():
+    """`JoinConfig()` equals the JAX package's field for field, in its
+    order (the TPU-only `use_pallas` aside), and `JoinConfig(8)` is
+    max_obs, as there."""
+    want = jjoin.JoinConfig()._asdict()
+    del want["use_pallas"]
+    assert tjoin.JoinConfig()._asdict() == want
+    assert list(tjoin.JoinConfig._fields) == list(want)
+    assert tjoin.JoinConfig(8).max_obs == 8
+
+
+@pytest.mark.parametrize("form", ["default", "max_obs"])
+def test_join_stereo_default_config_is_direct(form, monkeypatch):
+    """`join_stereo(a, b)` and `join_stereo(a, b, JoinConfig(max_obs=8))`
+    take the JAX package's exact direct solve: no PCG call
+    (`schur.solve_full_mixed`), states within 1e-9 of the reference's."""
+    a, b = _stereo_pair()
+    args = () if form == "default" else (tjoin.JoinConfig(max_obs=8),)
+    jargs = () if form == "default" else (jjoin.JoinConfig(max_obs=8),)
+    pcg = []
+    solve = tschur.solve_full_mixed
+    monkeypatch.setattr(tschur, "solve_full_mixed",
+                        lambda *a, **k: pcg.append(1) or solve(*a, **k))
+    got = types.to_numpy(types.lanes(
+        tjoin.join_stereo(one_lane(a), one_lane(b), *args), 0))
+    want = jjoin.join_stereo(a, b, *jargs)
+    assert not pcg
+    np.testing.assert_array_equal(got.pose_ids, np.asarray(want.pose_ids))
+    np.testing.assert_allclose(got.poses, np.asarray(want.poses), atol=1e-9)
+    np.testing.assert_allclose(got.feats, np.asarray(want.feats), atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["float32", "float64"])
+def test_info_dtype_name_equals_torch_dtype(name):
+    """`JoinConfig(info_dtype="float32")`, the JAX package's form, gives
+    the same bits as `info_dtype=torch.float32`, through the transform and
+    the join of `parallel/level.merge_one_stereo`."""
+    a, b = _stereo_pair()
+    b = dataclasses.replace(b, gauge=dataclasses.replace(
+        b.gauge, ref=np.int32(2)))   # a pose of a: the transform runs
+    outs = []
+    for idt in (name, getattr(torch, name)):
+        cfg = tjoin.JoinConfig(max_obs=8, info_dtype=idt)
+        outs.append(tlevel.merge_one_stereo(one_lane(a), one_lane(b), cfg))
+    for f in ("poses", "feats", "U", "W", "V"):
+        assert torch.equal(getattr(outs[0], f), getattr(outs[1], f)), f
+    assert outs[0].U.dtype == getattr(torch, name)
+
+
+def test_graft_entry_merge_matches_reference():
+    """The JAX package's single-pair merge as `__graft_entry__.entry` calls
+    it, `merge_one_stereo(g, m, JoinConfig(max_obs=8))`, on its two maps:
+    ids exact, states within 1e-9."""
+    import __graft_entry__ as graft
+    fn, (g, m) = graft.entry()
+    want = fn(g, m)
+    got = types.to_numpy(types.lanes(tlevel.merge_one_stereo(
+        one_lane(g), one_lane(m), tjoin.JoinConfig(max_obs=8)), 0))
+    for f in ("pose_ids", "feat_ids"):
+        np.testing.assert_array_equal(getattr(got, f),
+                                      np.asarray(getattr(want, f)))
+    np.testing.assert_allclose(got.poses, np.asarray(want.poses), atol=1e-9)
+    np.testing.assert_allclose(got.feats, np.asarray(want.feats), atol=1e-9)
 
 
 def test_compact_device_matches_reference():
