@@ -39,6 +39,21 @@ Phases, each printing its lines; any failure exits non-zero:
    inverse alone, the unfused sequence (K2 with K = 0, `take`,
    `torch.matmul`), the library yardstick (`torch.linalg.inv`, `take`,
    `torch.matmul`) and the plain version, beside the bound;
+4b. kernel K3 (`seg_sum_fixed`, the port's fixed-order segment sum, which
+   direct mono runs inside `ops/segment.deterministic()`) against its plain
+   version, `torch.equal`, in float32 and float64: K = 0, every index
+   dropped, empty segments, one long run of equal keys, unsorted keys,
+   lane-folded batches of every tail ((), 3, 6, 6x3, 3x3, 6x6), the
+   accumulate-into form with alpha = -1, `segment.seg_sum` inside the
+   scope, and the direct mono path's W lists at level 1 and the root (the
+   mono plan's (P, N, K), a [P, K, 6, 3] sum over wf into N); every case
+   also `torch.equal` to the CPU's `index_add_` on the raw index list,
+   which shares no sort or offsets with the card. At those
+   shapes, CUDA events over loops of calls: the kernel on a prebuilt plan,
+   plan + launch, the plain version, `index_add_` (atomics) and
+   `index_add_` under `torch.use_deterministic_algorithms(True)`, beside
+   the bound: the kept entries' values and positions and the offsets read
+   once plus the output written once, over 3.35 TB/s;
 5. small trees solved on the GPU and on the CPU, by "refine" and by
    "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
    agree to atol 1e-9;
@@ -129,9 +144,16 @@ Phases, each printing its lines; any failure exits non-zero:
    within 1e-6, poses within 1e-5; the dense executor's default refine,
    f32 at its low levels, 1e-4 and 5e-4, and with f64 at every level
    1e-6 and 1e-5); `__graft_entry__`'s
-   `merge_one_stereo(g, m, JoinConfig(max_obs=8))` against the CPU. Every
-   K1 and K2 call of the paths it counts is held against its plain
-   version in situ.
+   `merge_one_stereo(g, m, JoinConfig(max_obs=8))` against the CPU; (e)
+   direct mono on the host executor, `TreeSolver("mono",
+   method="direct")` and `pipeline.run(path, 512, "mono")`, twice each on
+   phase 11a's 512-map mono set: the two runs' poses equal, each run's ATE
+   within 1e-6 of that set's live oracle ATE and its poses within 1e-5 of
+   the oracle's file. Every K1, K2 and K3 call of the paths it counts is
+   held against its plain version in situ (in (e) those of the solver's
+   second run), and every K3 plan built in a held run against the CPU's
+   plan of the same index list; K3 must run on the fixed-order
+   paths (12a's device runs, pin="zero", (e)) and nowhere else.
 
 The kernel launch counts are set to 0 just before each main path's timed
 run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
@@ -140,10 +162,13 @@ after it, and likewise around each `compare_ate` run and `bench_root`
 at the shapes phase 4 timed.
 The CLI runs report their own counts (pipeline log); the host run's are
 set to 0 before `cli.main` and read after it. Every path must launch K1
-and K2. The line before the last is the kernel record (per kernel:
+and K2; K3 must launch on the fixed-order paths (direct mono on the device
+and host executors: the CLI's mono, 12a, 12b's 2,048-map run, 12e) and on
+no other. The line before the last is the kernel record (per kernel:
 launches, max error, kernel, plain, bound and library times and what the
 library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
-float32); the last line is {"ok": true, "device": {...}}.
+float32, K3 at the direct mono root in float64); the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -179,6 +204,23 @@ def _loop_ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+# K1 and K2 run on every path; K3 only where a solve sums in the fixed order
+# (direct mono on the device and host executors, `segment.deterministic()`)
+PATH_KERNELS = ("blockcoo_to_dense", "inv3x3_sym")
+K3 = "seg_sum_fixed"
+
+
+def _require_launched(tag, counts, fixed=False):
+    """Fails unless K1 and K2 (and, on a fixed-order path, K3) launched in
+    `counts`; K3 must not have launched on any other path."""
+    for k in PATH_KERNELS + ((K3,) if fixed else ()):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    if not fixed and counts.get(K3, 0):
+        raise AssertionError(f"{tag}: K3 launched {counts[K3]} times outside "
+                             f"the fixed-order scope")
 
 
 # H100 SXM HBM rate and non-tensor f64 peak (NVIDIA data sheet, 700 W); the
@@ -674,6 +716,274 @@ def phase_k2(shapes):
     return max_err, times
 
 
+TAILS = [(), (3,), (6,), (6, 3), (3, 3), (6, 6)]
+
+
+def _k3_case(g, P, K, num, tail, dtype, lo=-3, hi=None, pad_every=0):
+    """(vals [P, K, *tail], idx [P, K], num) on the card: indices in [lo,
+    hi) (by default dropped ones on both sides); every pad_every-th entry
+    padding as the joins pad (value 0, index 0)."""
+    import torch
+    hi = num + 3 if hi is None else hi
+    idx = torch.randint(lo, hi, (P, K), generator=g, device="cuda")
+    vals = torch.randn((P, K) + tail, generator=g, device="cuda",
+                       dtype=dtype)
+    if pad_every:
+        idx[:, ::pad_every] = 0
+        vals[:, ::pad_every] = 0.0
+    return vals, idx, num
+
+
+def _k3_bound_ms(plan, T, esz):
+    """Least time of one K3 launch: the kept entries' values and positions
+    read once, the segment offsets read once and the output written once,
+    over the HBM rate."""
+    P, num = plan.P, plan.num
+    lens = (plan.off[1:] - plan.off[:-1]).view(P, num + 1)[:, :num]
+    kept = int(lens.sum())
+    rows = P * num
+    nbytes = (kept * (T * esz + 4) + (P * (num + 1) + 1) * 4
+              + rows * T * esz)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _max_err(a, b) -> float:
+    """Largest |a - b|, on a's device; 0.0 for empty tensors."""
+    if not a.numel():
+        return 0.0
+    return float((a - b.to(a.device)).abs().max())
+
+
+def _k3_cpu_sum(vals, idx, num, out=None, alpha=1):
+    """The CPU's `index_add_` on the raw inputs, with no plan: the flat key
+    of entry (p, k) is p*num + idx[p, k], an index outside [0, num) goes to
+    a spare row; into zeros, or a copy of `out` [P, num, *tail]. The
+    reference the card's sort and offsets are held against."""
+    import torch
+    vals, idx = vals.cpu(), idx.cpu()
+    P, tail = idx.shape[0], tuple(vals.shape[2:])
+    ok = (idx >= 0) & (idx < num)
+    flat = torch.where(ok, idx + torch.arange(P)[:, None] * num, P * num)
+    res = vals.new_zeros((P * num + 1,) + tail)
+    if out is not None:
+        res[:P * num] = out.cpu().reshape((P * num,) + tail)
+    res.index_add_(0, flat.reshape(-1), vals.reshape((-1,) + tail),
+                   alpha=alpha)
+    return res[:P * num].view((P, num) + tail)
+
+
+def _k3_hold(name, vals, plan, idx, out=None, alpha=1):
+    """K3 on (vals, plan[, out, alpha]) against its plain version on the same
+    inputs and against the CPU's `index_add_` on vals and the raw index
+    list idx (`_k3_cpu_sum`, which shares no sort or offsets with the
+    card), both `torch.equal`; one launch (none for an empty output).
+    Returns the largest |kernel - reference| (0.0 when equal)."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    base = None if out is None else out.clone()
+    ref = kernels.seg_sum_fixed_ref(vals, plan, None if out is None
+                                    else out.clone(), alpha)
+    n0 = kernels.launches[K3]
+    got = kernels.seg_sum_fixed(vals, plan, out, alpha)
+    torch.cuda.synchronize()
+    if kernels.launches[K3] != n0 + (got.numel() > 0):
+        raise AssertionError(f"K3 {name}: not one launch")
+    cpu = _k3_cpu_sum(vals, idx, plan.num, base, alpha)
+    err = max(_max_err(got, ref), _max_err(got, cpu))
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K3 {name}: kernel != plain, max err {err}")
+    if not torch.equal(got.cpu(), cpu):
+        raise AssertionError(f"K3 {name}: kernel != the CPU's index_add_ on "
+                             f"the raw index list, max err {err}")
+    return err
+
+
+def phase_k3(shapes):
+    """K3 (`seg_sum_fixed`) against its plain version on the card,
+    `torch.equal`, float32 and float64: K = 0, every index dropped, empty
+    segments, one long run, unsorted keys, lane-folded batches of every
+    tail, the accumulate-into form (alpha = -1) and the direct mono
+    path's W lists at level 1 and the root (`shapes`: (P, N, K) of the
+    mono plan; the congruence's [P, K, 6, 3] sum over wf into N features,
+    every 17th entry padding). Every case is also held against the CPU's
+    `index_add_` on the raw index list (`_k3_cpu_sum`), so the card's sort
+    and offsets face a reference that shares neither. At the main-path
+    shapes, CUDA events over loops of calls: the kernel on a prebuilt
+    plan, plan + launch, the plain version and two library yardsticks,
+    `index_add_` (atomics) and `index_add_` under
+    `torch.use_deterministic_algorithms(True)`, beside the bound. Returns
+    (the largest |kernel - reference| measured, the times by (level,
+    dtype))."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels, segment
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(43)
+    times, max_err = {}, 0.0
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        cases = {f"lane-folded 8 lanes {tail}": _k3_case(g, 8, 300, 40, tail,
+                                                         dtype)
+                 for tail in TAILS}
+        long_idx = torch.full((2, 5000), 4, dtype=torch.int64,
+                              device="cuda")
+        long_idx[1, ::7] = 2
+        cases.update({
+            "K=0": _k3_case(g, 2, 0, 6, (6,), dtype),
+            "all dropped": _k3_case(g, 2, 100, 5, (6, 3), dtype, lo=5,
+                                    hi=12),
+            "empty segments": _k3_case(g, 3, 5, 200, (3,), dtype),
+            "one long run": (torch.randn((2, 5000, 6, 6), generator=g,
+                                         device="cuda", dtype=dtype),
+                             long_idx, 6),
+            "unsorted wide": _k3_case(g, 1, 20000, 3000, (6, 3), dtype),
+        })
+        for name, (vals, idx, num) in cases.items():
+            plan = kernels.seg_plan(idx, num)
+            err = _k3_hold(f"{name} {dn}", vals, plan, idx)
+            base = torch.randn((idx.shape[0], num) + tuple(vals.shape[2:]),
+                               generator=g, device="cuda", dtype=dtype)
+            err = max(err, _k3_hold(f"{name} {dn} into, alpha -1", vals,
+                                    plan, idx, base, alpha=-1))
+            with segment.deterministic():
+                got = segment.seg_sum(vals, idx, num)
+            cpu = _k3_cpu_sum(vals, idx, num)
+            err = max(err, _max_err(got, cpu))
+            if not torch.equal(got.cpu(), cpu):
+                raise AssertionError(f"K3 {name} {dn}: seg_sum in the scope "
+                                     f"!= the CPU's index_add_")
+            max_err = max(max_err, err)
+            print(f"k3 {name} {dn}: vals {list(vals.shape)} into {num} "
+                  f"segments, sum and accumulate-into (alpha -1) torch.equal "
+                  f"to the plain version and to the CPU's index_add_ on the "
+                  f"raw index list, max err {err:.3e} ok", flush=True)
+        del cases
+
+    for level in ("level1", "root"):
+        P, N, K = shapes[f"mono {level}"]
+        for dtype in (torch.float32, torch.float64):
+            dn = str(dtype).split(".")[-1]
+            tag = f"mono {level} P {P} N {N} K {K} {dn}"
+            vals, wf, _ = _k3_case(g, P, K, N, (6, 3), dtype, lo=0, hi=N,
+                                   pad_every=17)
+            plan = kernels.seg_plan(wf, N)
+            base = torch.randn((P, N, 6, 3), generator=g, device="cuda",
+                               dtype=dtype)
+            max_err = max(max_err, _k3_hold(tag, vals, plan, wf),
+                          _k3_hold(f"{tag} into, alpha -1", vals, plan, wf,
+                                   base, alpha=-1))
+            flat = (wf + torch.arange(P, device="cuda")[:, None] * N
+                    ).reshape(-1)
+            v2 = vals.reshape((-1, 6, 3))
+            lib_out = torch.zeros((P * N, 6, 3), device="cuda", dtype=dtype)
+
+            def library():
+                lib_out.zero_().index_add_(0, flat, v2)
+
+            def library_det():
+                torch.use_deterministic_algorithms(True)
+                try:
+                    lib_out.zero_().index_add_(0, flat, v2)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            kernel = lambda: kernels.seg_sum_fixed(vals, plan)  # noqa: E731
+            wrapper = lambda: kernels.seg_sum_fixed(  # noqa: E731
+                vals, kernels.seg_plan(wf, N))
+            plain = lambda: kernels.seg_sum_fixed_ref(vals, plan)  # noqa: E731
+            reps = 20
+            k1, w = _loop_ms(kernel, reps), _loop_ms(wrapper, reps)
+            p = _loop_ms(plain, 3)
+            lib, det = _loop_ms(library, reps), _loop_ms(library_det, reps)
+            k2 = _loop_ms(kernel, reps)
+            lens = (plan.off[1:] - plan.off[:-1]).view(P, N + 1)[:, :N]
+            ms = min(k1, k2)
+            bound = _k3_bound_ms(plan, 18, vals.element_size())
+            times[(level, dn)] = dict(ms=ms, wrapper_ms=w, plain_ms=p,
+                                      library_ms=lib, library_det_ms=det,
+                                      bound_ms=bound, bound_by="bytes")
+            print(f"k3 time {tag} (6x3 over wf, longest segment "
+                  f"{int(lens.max())} entries): kernel {k1:.4f}/{k2:.4f} ms "
+                  f"on a prebuilt plan, plan + launch {w:.4f} ms, bound "
+                  f"{bound:.4f} ms (bytes) = {bound / ms:.1%} of the "
+                  f"kernel's time; library index_add_ (atomics) {lib:.4f} "
+                  f"ms, index_add_ under use_deterministic_algorithms "
+                  f"{det:.4f} ms; plain {p:.3f} ms (CUDA events, loops of "
+                  f"{reps}, plain 3)", flush=True)
+            del vals, wf, plan, base, flat, v2, lib_out
+    print(f"k3: phase {time.perf_counter() - t_phase:.2f} s, max |kernel - "
+          f"reference| {max_err:.3e}", flush=True)
+    return max_err, times
+
+
+class _K3InSitu:
+    """While active, every K3 call (`kernels.seg_sum_fixed`, which
+    `ops/segment` calls) is held against its plain version on its own
+    inputs, `torch.equal` (in the accumulate-into form the plain version
+    runs on a copy of the input taken before the kernel), and every plan
+    built on the card (`kernels.seg_plan`) against the plan the CPU builds
+    from the same index list, `torch.equal` permutation and offsets: so
+    each sum is the CPU's in-order `index_add_` of the raw list. Counts
+    the calls by dtype and the plans, keeps the largest (P, K, num, tail)
+    seen and, across every instance, the largest |kernel - plain|
+    (`worst`)."""
+
+    worst = 0.0
+
+    def __enter__(self):
+        from linearsfm_tpu_torch.ops import kernels
+        self.calls, self.plans, self.largest = {}, 0, (0, 0, 0, ())
+        self._saved = kernels.seg_sum_fixed, kernels.seg_plan
+        k3, seg_plan = self._saved
+
+        def held(vals, plan, out=None, alpha=1):
+            import torch
+            ref = kernels.seg_sum_fixed_ref(
+                vals, plan, None if out is None else out.clone(), alpha)
+            got = k3(vals, plan, out, alpha)
+            torch.cuda.synchronize()
+            err = _max_err(got, ref)
+            _K3InSitu.worst = max(_K3InSitu.worst, err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K3 in situ {list(vals.shape)} into "
+                                     f"{plan.num}: kernel != plain, max err "
+                                     f"{err}")
+            dn = str(vals.dtype).split(".")[-1]
+            self.calls[dn] = self.calls.get(dn, 0) + 1
+            if plan.P * plan.K > self.largest[0] * self.largest[1]:
+                self.largest = (plan.P, plan.K, plan.num,
+                                tuple(vals.shape[2:]))
+            return got
+
+        def planned(idx, num):
+            import torch
+            plan = seg_plan(idx, num)
+            cpu = seg_plan(idx.cpu(), num)
+            if not (torch.equal(plan.perm.cpu(), cpu.perm)
+                    and torch.equal(plan.off.cpu(), cpu.off)):
+                raise AssertionError(f"K3 in situ: the card's plan of "
+                                     f"{list(idx.shape)} over {num} != the "
+                                     f"CPU's")
+            self.plans += 1
+            return plan
+        kernels.seg_sum_fixed, kernels.seg_plan = held, planned
+        return self
+
+    def __exit__(self, *exc):
+        from linearsfm_tpu_torch.ops import kernels
+        kernels.seg_sum_fixed, kernels.seg_plan = self._saved
+        return False
+
+    def report(self, tag):
+        """One line of what was held; fails if no call was held."""
+        print(f"{tag}: every K3 call held against the plain version in situ "
+              f"(torch.equal) and every plan against the CPU's: calls by "
+              f"dtype {self.calls}, {self.plans} plans, largest (P, K, num, "
+              f"tail) {self.largest}, max err {_K3InSitu.worst:.3e} ok",
+              flush=True)
+        if not self.calls or not self.plans:
+            raise AssertionError(f"{tag}: no K3 call or plan held in situ")
+
+
 def _k2_shapes(datasets):
     """The fused K2's (P, N, K) at level 1 and at the root of each path's
     plan (`core/plan.plan_tree_exact`): a level of `count` maps joins
@@ -851,9 +1161,7 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
         raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
     if not res_max <= 1e-10:
         raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
-    for k, c in launched.items():
-        if c <= 0:
-            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    _require_launched(tag, launched)
     return launched, _poses_by_id(out)
 
 
@@ -1169,10 +1477,7 @@ def phase_entry_points(datasets, tmp):
     held.report(f"{tag} (again, {time.perf_counter() - t0:.1f} s)",
                 launched["host stereo"]["blockcoo_to_dense"])
     for path, counts in launched.items():
-        for k, c in counts.items():
-            if c <= 0:
-                raise AssertionError(f"entry {path}: kernel {k} was never "
-                                     f"launched")
+        _require_launched(f"entry {path}", counts, fixed=path == "cli mono")
 
     for datatype, m in (("stereo", 13), ("mono", 11)):
         maps, _, _ = gen.make_dataset(m, datatype, noise=0.01, seed=5)
@@ -1326,9 +1631,7 @@ def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
     if not diff <= limit:
         raise AssertionError(f"{tag}: poses differ from the single-device "
                              f"run by {diff}")
-    for k, c in launched.items():
-        if c <= 0:
-            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    _require_launched(tag, launched)
     return launched
 
 
@@ -1376,9 +1679,7 @@ def _multihost(maps, poses_gt):
           f"{time.perf_counter() - t1:.3f} s; kernel launches {launched}",
           flush=True)
     check("multihost simulated", sim)
-    for k, c in launched.items():
-        if c <= 0:
-            raise AssertionError(f"multihost: kernel {k} was never launched")
+    _require_launched("multihost", launched)
 
     # the workers share the card: hand back this process's cached blocks
     gc.collect()
@@ -1561,9 +1862,7 @@ def _dense_main_path(datatype, maps, poses_gt, single, **solver_kw):
           f"{ate - oracle:+.3e}), pose max |diff| vs the device executor's "
           f"main path {diff:.3e}, {len(got)} poses, kernel launches "
           f"{launched}", flush=True)
-    for k, c in launched.items():
-        if c <= 0:
-            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    _require_launched(tag, launched)
     return launched, plan.levels[-1].caps_out
 
 
@@ -1637,9 +1936,7 @@ def phase_dense(datasets, single, text_dir, cli_poses):
     if not diff <= 2e-6:
         raise AssertionError(f"dense cli stereo: pose files differ by {diff}")
     for path, counts in launched.items():
-        for k, c in counts.items():
-            if c <= 0:
-                raise AssertionError(f"{path}: kernel {k} was never launched")
+        _require_launched(path, counts)
     print(f"dense: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
     return launched
 
@@ -1846,10 +2143,7 @@ def phase_tools(datasets):
             raise AssertionError(f"tools {name}: exit {rc}")
         _labelled(f"tools {name}", text, labels)
     for path, counts in launched.items():
-        for k, c in counts.items():
-            if c <= 0:
-                raise AssertionError(f"tools {path}: kernel {k} was never "
-                                     f"launched")
+        _require_launched(f"tools {path}", counts)
     print(f"tools: phase {time.perf_counter() - t_phase:.2f} s ((a) "
           f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
           f"{time.perf_counter() - t_b:.2f} s)", flush=True)
@@ -1870,13 +2164,20 @@ def _counted(fn):
     return out, dict(kernels.launches), time.perf_counter() - t0
 
 
-def _held_counted(tag, fn, k1_at_root=True):
-    """`_counted(fn)` with every K1 and K2 call held against its plain
-    version in situ (`_K1InSitu`, `_K2InSitu`): K2 and (given
+def _held_counted(tag, fn, k1_at_root=True, fixed=False):
+    """`_counted(fn)` with every K1, K2 and K3 call held against its plain
+    version in situ (`_K1InSitu`, `_K2InSitu`, `_K3InSitu`): K2 and (given
     `k1_at_root`) K1 must have been held at the root; the dense executor
-    calls K1 at level 0 only. The wall includes the checks."""
-    with _K1InSitu() as k1, _K2InSitu() as k2:
+    calls K1 at level 0 only. K3 must have been held on a `fixed`-order
+    path and must not have run on any other. The wall includes the
+    checks."""
+    with _K1InSitu() as k1, _K2InSitu() as k2, _K3InSitu() as k3:
         got = _counted(fn)
+    if fixed:
+        k3.report(tag)
+    elif k3.calls:
+        raise AssertionError(f"{tag}: K3 ran outside the fixed-order scope "
+                             f"{k3.calls}")
     if k1_at_root:
         _held_at_root(tag, k1, k2)
     else:
@@ -1892,8 +2193,8 @@ def _held_counted(tag, fn, k1_at_root=True):
 def phase_call_forms(datasets, oracle512):
     """Phase 12, the JAX package's call forms on the port, no device
     argument anywhere (the card is the default). Every run whose launches
-    it returns holds each K1 and K2 call against its plain version in situ
-    (`_held_counted`). (a) `DeviceTreeSolver("mono", method="direct")` run
+    it returns holds each K1, K2 and K3 call against its plain version in
+    situ (`_held_counted`). (a) `DeviceTreeSolver("mono", method="direct")` run
     directly (no pipeline) on the 2,048-map mono set three times, the last
     held in situ: every pose id there and finite, the three runs'
     poses `torch.equal` (the solver sums direct mono in a fixed order), the
@@ -1914,7 +2215,11 @@ def phase_call_forms(datasets, oracle512):
     `__graft_entry__.entry`'s single-pair merge, `merge_one_stereo(g, m,
     JoinConfig(max_obs=8))` on two maps of the 2-map stereo set (2
     features per pose, seed 0, compacted at buckets 8 / 16), on the card
-    against the CPU within 1e-9. Returns the launches of each path."""
+    against the CPU within 1e-9; (e) `TreeSolver("mono", method="direct")`
+    and `pipeline.run(path, 512, "mono")` (the host executor, direct) twice
+    each on phase 11a's mono set, the solver's second run held in situ (K1,
+    K2 and K3): equal poses, each run within 1e-6 (ATE) and 1e-5 (poses) of
+    the live oracle. Returns the launches of each path."""
     import numpy as np
     import torch
     from synth import generate as gen
@@ -1965,7 +2270,8 @@ def phase_call_forms(datasets, oracle512):
               flush=True)
         del out
     out, launched[tag], wall = _held_counted(f"{tag} in situ",
-                                             lambda: solver.run(maps))
+                                             lambda: solver.run(maps),
+                                             fixed=True)
     check(f"{tag} in situ", out, mono_ids)
     pa = _poses_by_id(out)
     same = [torch.equal(runs[0][1], p) for p in (runs[1][1], out.poses)]
@@ -1998,7 +2304,8 @@ def phase_call_forms(datasets, oracle512):
     # (b) pin="zero"
     tag = "call forms mono direct pin zero"
     zero = DeviceTreeSolver("mono", method="direct", pin="zero")
-    out, launched[tag], wall = _held_counted(tag, lambda: zero.run(maps))
+    out, launched[tag], wall = _held_counted(tag, lambda: zero.run(maps),
+                                             fixed=True)
     check(tag, out, mono_ids)
     p = _poses_by_id(out)
     print(f"{tag}: wall {wall:.4f} s (in situ), max pose diff vs pin='sign' "
@@ -2025,16 +2332,20 @@ def phase_call_forms(datasets, oracle512):
     m512, gt512, _ = gen.make_dataset(512, "stereo", noise=0.005, seed=7,
                                       covis_radius=6.0, covis_max=6)
 
-    def vs_oracle(tag, out, ate_limit=1e-6, pose_limit=1e-5):
-        check(tag, out, set(range(1, 513)))
+    def vs_oracle(tag, out, ate_limit=1e-6, pose_limit=1e-5,
+                  datatype="stereo", gt=gt512):
+        check(tag, out, set(range(1, 513)) if datatype == "stereo"
+              else set(range(514)))
         p = _poses_by_id(out)
-        diff = _max_diff(tag, p, oracle512["poses"])
+        diff = _max_diff(tag, p, oracle512[datatype]["poses"])
         print(f"{tag}: pose max |diff| vs the oracle's pose file {diff:.3e} "
               f"(limit {pose_limit:g})", flush=True)
         if not diff <= pose_limit:
             raise AssertionError(f"{tag}: poses differ from the oracle's by "
                                  f"{diff}")
-        near_oracle(tag, _ate_of(p, gt512), oracle512["ate"], ate_limit)
+        near_oracle(tag, _ate_of(p, gt), oracle512[datatype]["ate"],
+                    ate_limit)
+        return out.poses
 
     # the dense executor's default refine keeps f32 information at its
     # low levels: at 512 maps it lands +2.690e-5 (ATE) and 1.494e-4
@@ -2070,6 +2381,42 @@ def phase_call_forms(datasets, oracle512):
     print(f"{tag}: pipeline.run(path, 512, 'stereo') wall {wall:.4f} s (in "
           f"situ), kernel launches {launched[tag]}", flush=True)
     vs_oracle(tag, out)
+    del out
+
+    # (e) direct mono on the host executor, which sums in the fixed order
+    # now: TreeSolver and pipeline.run twice each on phase 11a's mono set
+    mono512, gtm, _ = gen.make_dataset(512, "mono", noise=0.005, seed=7,
+                                       covis_radius=6.0, covis_max=6)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text:
+        lio.write_dataset(mono512, text)
+        # pipeline.run solves with the same TreeSolver, so the solver's
+        # second run alone is held in situ (each held run costs about
+        # three plain ones)
+        for tag, run, held in (
+                ("host mono 512 direct",
+                 lambda: TreeSolver("mono", method="direct").run(mono512),
+                 True),
+                ("pipeline.run mono 512",
+                 lambda: pipeline.run(text, 512, "mono", progress=False)[0],
+                 False)):
+            tag = f"call forms {tag}"
+            first, counts, wall = _counted(run)
+            first = vs_oracle(f"{tag} run 0", first, datatype="mono",
+                              gt=gtm)
+            if held:
+                out, launched[tag], wall2 = _held_counted(tag, run,
+                                                          fixed=True)
+            else:
+                out, launched[tag], wall2 = _counted(run)
+            again = vs_oracle(f"{tag} run 1", out, datatype="mono", gt=gtm)
+            same = (torch.equal(first, again) if torch.is_tensor(first)
+                    else np.array_equal(first, again))
+            print(f"{tag}: two runs' poses torch.equal {same}; walls "
+                  f"{wall:.4f} s, {wall2:.4f} s{' in situ' if held else ''};"
+                  f" kernel launches {counts}, {launched[tag]}", flush=True)
+            if not same:
+                raise AssertionError(f"{tag}: the runs' poses differ")
+            del first, out, again
     t_c = time.perf_counter()
 
     # (d) the single-pair merge of __graft_entry__.entry
@@ -2088,10 +2435,10 @@ def phase_call_forms(datasets, oracle512):
         raise AssertionError(f"call forms merge_one_stereo: GPU vs CPU "
                              f"{diff:.3e}")
     for path, counts in launched.items():
-        for k, c in counts.items():
-            if c <= 0:
-                raise AssertionError(f"{path}: kernel {k} was never "
-                                     f"launched")
+        _require_launched(path, counts, fixed=path in (
+            "call forms mono direct", "call forms mono direct pin zero",
+            "call forms host mono 512 direct",
+            "call forms pipeline.run mono 512"))
     print(f"call forms: phase {time.perf_counter() - t_phase:.2f} s ((a) "
           f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
           f"{t_c - t_b:.2f} s, (d) {time.perf_counter() - t_c:.2f} s)",
@@ -2132,6 +2479,7 @@ def main() -> int:
     shapes = _k2_shapes(datasets)
     k1_err, k1_times = phase_kernels()
     k2_err, k2_times = phase_k2(shapes)
+    k3_err, k3_times = phase_k3(shapes)
     phase_small_trees()
     paths, single = {}, {}
     for d, (maps, gt, tp) in datasets.items():
@@ -2143,22 +2491,23 @@ def main() -> int:
         paths.update(phase_dense(datasets, single, text_dir, cli_poses))
     launched, oracle512 = phase_tools(datasets)
     paths.update(launched)
-    paths.update(phase_call_forms(datasets, oracle512["stereo"]))
+    paths.update(phase_call_forms(datasets, oracle512))
 
-    def record(name, source, replaces, max_err, t, library):
-        by_path = {d: c[name] for d, c in paths.items()}
+    def record(name, source, replaces, max_err, t, library, **extra):
+        by_path = {d: c.get(name, 0) for d, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
-                "library_ms": t["library_ms"], "library": library}
+                "library_ms": t["library_ms"], "library": library, **extra}
 
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s",
           flush=True)
     # K2's figures: the fused kernel (V^-1 and Y = W V^-1[wf]) at the stereo
-    # root, float32, by device time
+    # root, float32, by device time; K3's: the direct mono root's [1,
+    # 351360, 6, 3] float64 sum over wf, CUDA events
     print(json.dumps({"kernels": [
         record("blockcoo_to_dense",
                "linearsfm_tpu_torch/csrc/blockcoo_dense.cu",
@@ -2168,7 +2517,15 @@ def main() -> int:
         record("inv3x3_sym", "linearsfm_tpu_torch/csrc/inv3x3_sym.cu",
                "linearsfm_tpu/ops/pallas_kernels.py:57", k2_err,
                k2_times[("stereo root", "float32")],
-               "torch.linalg.inv + take + torch.matmul")]}), flush=True)
+               "torch.linalg.inv + take + torch.matmul"),
+        record(K3, "linearsfm_tpu_torch/csrc/segment_sum.cu",
+               "linearsfm_tpu/ops/schur.py:70",
+               max(k3_err, _K3InSitu.worst),
+               k3_times[("root", "float64")], "index_add_ (atomics)",
+               library_det_ms=k3_times[("root", "float64")]["library_det_ms"],
+               note="the port's own kernel, no TPU kernel: a fixed-order "
+                    "sum where the JAX package calls jax.ops.segment_sum")
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

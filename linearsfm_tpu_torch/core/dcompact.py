@@ -6,9 +6,10 @@ with stable sorts and segment sums, on every lane of a stacked map at once,
 so the maps never leave the device between tree levels. Output capacities
 are arguments; callers guarantee the valid counts fit (core/plan.py).
 
-Duplicate blocks are merged by `index_add_`: sequential on the CPU, atomic on
-a GPU, where the float64 summation order (and so the last bits) can change
-from run to run.
+Duplicate blocks are merged by `ops/segment.seg_sum`: in list order on the
+CPU and, inside `segment.deterministic()`, on the card (kernel K3); else
+through atomics there, where the float64 summation order (and so the last
+bits) can change from run to run.
 """
 
 from __future__ import annotations
@@ -112,6 +113,8 @@ def compact_device(lm: types.LocalMap, Mo: int, No: int, KUo: int,
                        torch.where(has, wkey % No, 0)], dim=-1)
 
     # ---- per-feature observation counts (post-merge) -----------------------
+    # an integer sum, exact in any order: `index_add_` even in the fixed-order
+    # scope
     obs = seg_sum(torch.ones_like(Wpf[..., 1]), torch.where(has, Wpf[..., 1], No),
                   No)
     out = types.LocalMap(

@@ -394,9 +394,10 @@ class DeviceTreeSolver:
         wall into the metrics records (`exec_wall`, seconds). Direct mono
         runs under `segment.deterministic()`."""
         # on an H100 the direct mono solve's atomic sums moved its poses by
-        # up to 9.2e-6 from run to run, and the JAX package gives the same
-        # bits on every run; stereo moved 2e-13 and would pay 11-17%
-        # (PERF.md §6, ROADMAP queue 3 for what the fixed order costs)
+        # up to 1.1e-5 from run to run, and the JAX package gives the same
+        # bits on every run; the scope sums in list order through kernel
+        # K3 (`ops/segment`); stereo moved 2e-13 and stays outside it
+        # (PERF.md §6, ROADMAP queue 3 item 1 for what the fixed order costs)
         fixed = self.datatype == "mono" and self.method == "direct"
         with segment.deterministic() if fixed else contextlib.nullcontext():
             return self._run(maps, metrics, ckpt_dir, resume, time_levels)

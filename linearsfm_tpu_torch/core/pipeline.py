@@ -54,10 +54,10 @@ def run(path: str, num: int, datatype: str,
     The pose, feature and state files are written as the reference does.
     Logged at INFO: the read time and the parser used, the solve wall, the
     solver's host phases, the solve's kernel launches, its peak device
-    memory (on a GPU) and the write time. The device executor sums direct
-    mono in a fixed order (`ops/segment.deterministic`); the dense
-    executor's sums give the same poses on every run without it, and the
-    host executor keeps PyTorch's atomics (ROADMAP queue 3).
+    memory (on a GPU) and the write time. The device and host executors
+    sum direct mono in a fixed order (`ops/segment.deterministic`, kernel
+    K3 on the card); the dense executor's sums give the same poses on
+    every run without it (ROADMAP queue 3 item 1).
     """
     device = solver_device(device, "pipeline.run")
     if solver is None:

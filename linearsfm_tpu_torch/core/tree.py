@@ -24,6 +24,7 @@ shards the feature axis of the single-pair joins of at least
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import types
-from ..ops import congruence
+from ..ops import congruence, segment
 from ..parallel import level as plevel
 from ..parallel.mesh import canonical, solver_device
 from ..utils import checkpoint
@@ -205,7 +206,13 @@ class TreeSolver:
 
         ckpt_dir: save the maps after every level (`level<L>_map<i>.npz`);
         resume: start from the newest complete level there instead of
-        `maps`."""
+        `maps`. Direct mono runs under `segment.deterministic()`, as in
+        `DeviceTreeSolver.run`: two runs give the same bits."""
+        fixed = self.datatype == "mono" and self.method == "direct"
+        with segment.deterministic() if fixed else contextlib.nullcontext():
+            return self._run(maps, ckpt_dir, resume, metrics)
+
+    def _run(self, maps, ckpt_dir, resume, metrics):
         level = 0
         if resume and ckpt_dir:
             state = checkpoint.latest(ckpt_dir)

@@ -11,6 +11,12 @@ its CUDA source under `csrc/` notes its design and what bounds it:
   products Y = W Vinv[wf] of every W entry; `inv3x3_sym` is the same launch
   with no W entries (the inverse alone).
 
+K3 `seg_sum_fixed` (`csrc/segment_sum.cu`) replaces no TPU kernel: it is
+the port's own fixed-order segment sum, for the sums that PyTorch would add
+with atomics on the card and XLA adds in a fixed order (`ops/segment`
+runs it inside `segment.deterministic()`); `seg_plan` sorts an index list
+once for it.
+
 All sources are compiled with nvcc for sm_90a (one process per source, all
 started together) and linked into one shared library with a plain C
 interface, at first use, into `_build/` beside the package, and bound with
@@ -37,7 +43,7 @@ import torch
 
 from .segment import lane_ids, take
 
-launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0}
+launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0, "seg_sum_fixed": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -46,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _lib: ctypes.CDLL | None = None   # loaded once per process
 _K2: dict = {}   # torch dtype -> K2's bound ctypes function, set by build()
+_K3: dict = {}   # torch dtype -> K3's bound ctypes function, set by build()
 
 
 def _nvcc() -> str:
@@ -104,6 +111,12 @@ def build() -> ctypes.CDLL:
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _K2[dtype] = fn
+    for dtype, fn in ((torch.float32, lib.seg_sum_f32),
+                      (torch.float64, lib.seg_sum_f64)):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _K3[dtype] = fn
     _lib = lib
     return lib
 
@@ -386,4 +399,134 @@ def inv3x3_sym(V: torch.Tensor) -> torch.Tensor:
                          "tensor")
     out = torch.empty_like(V)
     _k2_launch(V, None, None, out, None, 1, V.numel() // 9, 0)
+    return out
+
+
+class SegPlan(NamedTuple):
+    """One lane-stacked index list sorted for K3 (`seg_plan`); any number of
+    sums over values of that list reuse it."""
+    perm: torch.Tensor   # int32 [P*K]: flat entry index of each sorted position
+    off: torch.Tensor    # int32 [P*(num+1) + 1]: each segment's first position
+    P: int
+    K: int
+    num: int
+
+
+def seg_plan(idx: torch.Tensor, num: int) -> SegPlan:
+    """Sort the index list idx [P, K] once for K3: the flat key of entry
+    (p, k) is idx[p, k] + p*(num + 1), an index outside [0, num) going to
+    the lane's drop segment num (`segment.seg_sum`'s keys); one stable
+    sort lists the entries segment by segment, each segment's in list
+    order, and `off` holds each segment's first sorted position (integer
+    work, exact in any order). The same code runs on the CPU and on the
+    card."""
+    if idx.is_floating_point() or idx.dim() != 2:
+        raise TypeError("seg_plan: integer indices [P, K] only")
+    P, K = idx.shape
+    S = P * (num + 1)
+    if P * K >= 2**31 or S >= 2**31:
+        raise ValueError("seg_plan: more than 2**31 entries or segments")
+    dev = idx.device
+    key = (torch.where((idx >= 0) & (idx < num), idx, num)
+           + lane_ids(P, dev) * (num + 1)).to(torch.int32).reshape(-1)
+    skey, perm = torch.sort(key, stable=True)
+    off = torch.searchsorted(
+        skey, torch.arange(S + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return SegPlan(perm.to(torch.int32), off, P, K, num)
+
+
+def _seg_alpha(alpha) -> bool:
+    """True to subtract; K3 adds (alpha 1) or subtracts (alpha -1)."""
+    if alpha not in (1, -1):
+        raise ValueError(f"seg_sum_fixed: alpha must be 1 or -1, got {alpha}")
+    return alpha == -1
+
+
+def seg_sum_fixed_ref(vals: torch.Tensor, plan: SegPlan,
+                      out: torch.Tensor | None = None,
+                      alpha: int = 1) -> torch.Tensor:
+    """Plain version of K3: out[p, s] = base + alpha*vals[p, k0] +
+    alpha*vals[p, k1] + ..., added left to right over the entries k0 < k1
+    < ... whose flat key is segment s of lane p (`seg_plan`); dropped
+    entries are left out. vals [P, K, *tail]; base is zero, or `out` [P,
+    num, *tail] (contiguous), which then takes the result in place (the
+    accumulate-into form). Returns [P, num, *tail] on vals' device.
+
+    The plan's stable sort lists each segment's entries in list order, and
+    the CPU's `index_add_` adds them one after another in that order, so
+    this runs on the CPU whatever the device of its inputs (a CUDA tensor's
+    values go to the CPU and the result comes back).
+    """
+    _seg_alpha(alpha)
+    P, K, num = plan.P, plan.K, plan.num
+    tail = tuple(vals.shape[2:])
+    T = math.prod(tail)
+    cpu = torch.device("cpu")
+    off = plan.off.to(cpu, torch.int64)
+    seg = torch.repeat_interleave(torch.arange(P * (num + 1)),
+                                  off[1:] - off[:-1])
+    lane, s = seg // (num + 1), seg % (num + 1)
+    # segment s < num of lane p is output row p*num + s; drops to row P*num
+    row = torch.where(s < num, lane * num + s, P * num)
+    res = torch.zeros((P * num + 1, T), dtype=vals.dtype)
+    if out is not None:
+        res[:P * num] = out.reshape(P * num, T).to(cpu)
+    v = vals.reshape(P * K, T).to(cpu)[plan.perm.to(cpu, torch.int64)]
+    res.index_add_(0, row, v, alpha=alpha)
+    res = res[:P * num].view((P, num) + tail)
+    if out is None:
+        return res.to(vals.device)
+    return out.copy_(res)
+
+
+def seg_sum_fixed(vals: torch.Tensor, plan: SegPlan,
+                  out: torch.Tensor | None = None,
+                  alpha: int = 1) -> torch.Tensor:
+    """K3: the fixed-order segment sum of `seg_sum_fixed_ref`, bit-equal to
+    it, from one launch on a CUDA tensor (float32 or float64; the plain
+    version on the CPU). vals [P, K, *tail] contiguous and the plan on one
+    device; `out` [P, num, *tail] (contiguous, vals' dtype) is the
+    accumulate-into form's input and output, updated in place; else a new
+    tensor from torch.empty (the kernel writes every element)."""
+    if vals.device.type == "cpu":
+        return seg_sum_fixed_ref(vals, plan, out, alpha)
+    neg = _seg_alpha(alpha)
+    if vals.device.type != "cuda":
+        raise ValueError(f"seg_sum_fixed: no kernel for {vals.device}")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"seg_sum_fixed: float32/float64 only, got "
+                        f"{vals.dtype}")
+    P, K, num = plan.P, plan.K, plan.num
+    if vals.dim() < 2 or tuple(vals.shape[:2]) != (P, K):
+        raise ValueError(f"seg_sum_fixed: vals [P, K, ...] must match the "
+                         f"plan's ({P}, {K}), got {list(vals.shape)}")
+    if not vals.is_contiguous():
+        raise ValueError("seg_sum_fixed: vals must be contiguous")
+    if plan.perm.device != vals.device:
+        raise ValueError("seg_sum_fixed: plan and vals on different devices")
+    shape = (P, num) + tuple(vals.shape[2:])
+    if out is None:
+        out, base = torch.empty(shape, dtype=vals.dtype,
+                                device=vals.device), None
+    else:
+        if (tuple(out.shape) != shape or out.dtype != vals.dtype
+                or out.device != vals.device or not out.is_contiguous()):
+            raise ValueError(f"seg_sum_fixed: out must be a contiguous "
+                             f"{vals.dtype} {list(shape)} on {vals.device}")
+        base = out
+    T = math.prod(shape[2:])
+    if out.numel() == 0:
+        return out
+    fn = _K3.get(vals.dtype)
+    if fn is None:
+        build()
+        fn = _K3[vals.dtype]
+    err = fn(plan.off.data_ptr(), plan.perm.data_ptr(), vals.data_ptr(),
+             None if base is None else base.data_ptr(), out.data_ptr(),
+             P * num, num, T, int(neg),
+             torch.cuda.current_stream(vals.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"seg_sum_fixed: CUDA launch failed (error {err})")
+    launches["seg_sum_fixed"] += 1
     return out

@@ -22,7 +22,7 @@ import os
 import torch
 
 from . import kernels, solve
-from .segment import lane_ids, lane_where, seg_sum, take
+from .segment import index_add, lane_ids, lane_where, seg_sum, take
 
 # From this scalar dimension of the reduced system up, `assemble_schur`
 # assembles dense (the reference's threshold).
@@ -297,7 +297,7 @@ def subtract_pairs(S, Yg, Wg, pg, M: int):
         Yc, Wc, pc = Yg[:, lo:lo + chunk], Wg[:, lo:lo + chunk], pg[:, lo:lo + chunk]
         C = Yc[:, :, :, None] @ Wc[:, :, None].transpose(-1, -2)
         key = base + pc[..., :, None] * M + pc[..., None, :]
-        S.index_add_(0, key.reshape(-1), C.reshape(-1, 6, 6), alpha=-1)
+        index_add(S, key.reshape(-1), C.reshape(-1, 6, 6), alpha=-1)
     return S.view(P, M, M, 6, 6).permute(0, 1, 3, 2, 4).reshape(P, 6 * M,
                                                                  6 * M)
 

@@ -8,10 +8,20 @@ the flat index, so one torch call serves a whole tree level.
 Index semantics differ between the two frameworks, so they are fixed here
 once: a segment index outside ``[0, num)`` is dropped (the reference's
 ``mode="drop"``; torch would raise or write out of bounds) by routing it to
-an extra slot that is sliced off. ``index_add_`` sums duplicates sequentially
-on the CPU and through atomics on a GPU, whose order changes from run to run:
-results there differ from run to run by float64 rounding only, unless the
-work runs under `deterministic()`.
+an extra slot that is sliced off.
+
+Order of the sums. XLA adds a segment's values in a fixed order, so the JAX
+package gives the same bits on every run. ``index_add_`` adds them
+sequentially, in list order, on the CPU, but through atomics on a GPU, whose
+order changes from run to run: float results there differ by rounding from
+run to run. Inside `deterministic()` every floating-point sum of a CUDA
+tensor here (`seg_sum`, `index_add`) runs kernel K3 instead
+(`kernels.seg_sum_fixed`): each segment's values added in list order, with
+no atomics, bit-equal to the CPU's ``index_add_``. Each sum sorts its
+index list once (`kernels.seg_plan`); keeping the plans of lists summed
+twice saved nothing measurable on the direct mono paths (PERF.md §6).
+Integer sums are exact in any order and keep ``index_add_``; so does the
+CPU, whose ``index_add_`` is already in order.
 """
 
 from __future__ import annotations
@@ -22,26 +32,35 @@ import os
 import torch
 
 
+# depth of the open `deterministic()` scopes
+_fixed = 0
+
+
 @contextlib.contextmanager
 def deterministic():
-    """`torch.use_deterministic_algorithms` for the enclosed work: on the
-    GPU `index_add_` and `index_put_` then sum in a fixed order, so two
-    runs give the same bits. An operation without a fixed-order version
-    warns and runs as it is. cuBLAS wants a fixed workspace then
+    """The fixed-order scope: inside it every floating-point `seg_sum` and
+    `index_add` of a CUDA tensor runs K3, so two runs give the same bits.
+    PyTorch's global deterministic mode is left as the caller set it.
+    cuBLAS wants a fixed workspace for repeatable products
     (CUBLAS_WORKSPACE_CONFIG=:4096:8, set for the enclosed work unless the
-    caller set it). The previous settings are restored, so scopes nest."""
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
+    caller set it). Scopes nest; the outermost one's exit restores the
+    environment."""
+    global _fixed
     env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     if env is None:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    _fixed += 1
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        _fixed -= 1
         if env is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def _k3(x: torch.Tensor) -> bool:
+    """Whether a sum into x's dtype on x's device takes K3."""
+    return _fixed > 0 and x.device.type == "cuda" and x.is_floating_point()
 
 
 def lane_ids(P: int, device) -> torch.Tensor:
@@ -70,7 +89,13 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
     """out[p, s] = sum over k with idx[p, k] == s of vals[p, k].
 
     vals [P, K, ...], idx [P, K] -> [P, num, ...]; indices outside
-    [0, num) are dropped."""
+    [0, num) are dropped. In list order on the CPU and, inside
+    `deterministic()`, through K3 on the card; else `index_add_`'s
+    atomics there."""
+    if _k3(vals):
+        from . import kernels
+        return kernels.seg_sum_fixed(vals.contiguous(),
+                                     kernels.seg_plan(idx, num))
     P = idx.shape[0]
     tail = vals.shape[2:]
     idx = torch.where((idx >= 0) & (idx < num), idx, num)
@@ -78,6 +103,22 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
     out = vals.new_zeros((P * (num + 1),) + tail)
     out.index_add_(0, flat, vals.reshape((-1,) + tail))
     return out.view((P, num + 1) + tail)[:, :num]
+
+
+def index_add(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              alpha: int = 1) -> torch.Tensor:
+    """out.index_add_(0, idx, vals, alpha=alpha), in place, for idx [K] in
+    [0, out.shape[0]) and alpha 1 or -1; returns out. Inside
+    `deterministic()` a contiguous CUDA float `out` takes K3's
+    accumulate-into form (each row's entries added in list order)."""
+    if _k3(out):
+        from . import kernels
+        kernels.seg_sum_fixed(vals.contiguous()[None],
+                              kernels.seg_plan(idx.reshape(1, -1),
+                                               out.shape[0]),
+                              out=out[None], alpha=alpha)
+        return out
+    return out.index_add_(0, idx, vals, alpha=alpha)
 
 
 def lane_where(mask: torch.Tensor, a: torch.Tensor,

@@ -3,7 +3,8 @@ one GPU.
 
     python3 -m linearsfm_tpu_torch.tools.direct_paths [--parts schur,ate]
         [--paths stereo,mono] [--reps 3] [--out direct_paths_out]
-        [--maps 2048] [--exec device,dense,host] [--profile] [--cpu]
+        [--maps 2048] [--exec device,dense,host] [--method direct]
+        [--profile] [--cpu]
 
 The data is `chip_smoke.py`'s 2,048-map covis set (seed 7, noise 0.005,
 covis radius 6, at most 6 co-visible features per map).
@@ -21,26 +22,30 @@ launches per join, and the largest pose difference between the two.
 
 ate: run-to-run spread of the device executor's direct path
 (`DeviceTreeSolver(datatype, method="direct")`, the CLI's default) — --reps
-runs with PyTorch's defaults, then --reps runs under
+runs in each of three modes: PyTorch's defaults; PyTorch's global mode,
 `torch.use_deterministic_algorithms(True, warn_only=True)` (index_add_ and
 index_put_ sum in a fixed order; the operations that still warn are
-listed). Each run prints its ATE to 12 digits and its largest pose
-difference from the mode's first run. The first run also reports the
-condition number of the root's reduced system over its free coordinates
-(eigenvalues by `torch.linalg.eigvalsh`, float64).
-CUBLAS_WORKSPACE_CONFIG=:4096:8 is set for the whole process, as the
-deterministic mode requires.
+listed); and the port's own scope, `ops/segment.deterministic()` (kernel
+K3), whose first run also lists every accumulating scatter that still ran
+on the card (`index_add_`, `index_put_` with accumulate, `scatter_add_`,
+`scatter_reduce_`, `index_reduce_`, `put_`, `bincount`, `histc`; by
+dtype): an integer sum is exact in any order, a float one would wander.
+Each run prints its ATE to 12 digits and its largest pose difference from
+the mode's first run. The first run also reports the condition number of
+the root's reduced system over its free coordinates (eigenvalues by
+`torch.linalg.eigvalsh`, float64). CUBLAS_WORKSPACE_CONFIG=:4096:8 is set
+for the whole process, as the deterministic modes require.
 
-order: each executor's (--exec device,dense,host) direct solve timed
-with PyTorch's default sums and in a fixed order
+order: each executor's (--exec device,dense,host) solve by --method
+(direct by default) timed with PyTorch's default sums and in a fixed order
 (`ops/segment.deterministic`), in --reps warm pairs after a warm-up run,
 default first in the even pairs and fixed first in the odd ones: walls
 (the device and dense executors' level walls too), ATEs, the pose spread
 within each mode and the median of the pairs' fixed / default ratios.
 The executors' own scope is turned off while it runs (the mode decides).
 --profile adds one run of each mode under torch.profiler: the device time
-of the segment sums (`index_add_`, `index_put_`) and of the fills of
-uninitialized memory.
+of the segment sums (`index_add_`, `index_put_`, K3's kernel and the sort
+and search of its plans) and of the fills of uninitialized memory.
 
 The card's name and power limit come first; one JSON file per part goes to
 --out. --cpu (with a small --maps) rehearses the tool on the CPU.
@@ -208,19 +213,54 @@ def ate_part(datatype, reps):
     maps, poses_gt = _dataset(datatype)
     solver = DeviceTreeSolver(datatype, method="direct",
                               device=_run["device"])
-    with _own_scope_off():             # the mode below decides
-        return _ate_runs(solver, maps, poses_gt, datatype, reps)
+    with _own_scope_off() as scope:    # the mode below decides
+        return _ate_runs(solver, maps, poses_gt, datatype, reps, scope)
 
 
-def _ate_runs(solver, maps, poses_gt, datatype, reps):
+_ACCUMULATING = ("index_add", "index_put", "_index_put_impl",
+                 "scatter_add", "scatter_reduce", "index_reduce", "put",
+                 "bincount", "histc")
+
+
+def _census():
+    """A dispatch mode that counts the accumulating scatters on CUDA
+    tensors by op and dtype (`index_put_` only with accumulate=True);
+    its `seen` is a Counter."""
+    import collections
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if name.rstrip("_") in _ACCUMULATING and args:
+                x = args[0]
+                acc = (kwargs.get("accumulate", args[3] if len(args) > 3
+                                  else False)
+                       if "index_put" in name else True)
+                if (acc and isinstance(x, torch.Tensor)
+                        and x.device.type == "cuda"):
+                    self.seen[f"{name} {str(x.dtype).split('.')[-1]}"] += 1
+            return func(*args, **kwargs)
+    return Census()
+
+
+def _ate_runs(solver, maps, poses_gt, datatype, reps, scope):
+    """The ate part's runs; `scope` is the port's fixed-order scope."""
     import torch
     from linearsfm_tpu_torch.ops import solve
 
     solver.run(maps)                   # warm-up
     out = dict(datatype=datatype, oracle=ORACLE_ATE_2048[datatype])
-    for mode in ("default", "deterministic"):
+    for mode in ("default", "deterministic", "fixed"):
         torch.use_deterministic_algorithms(mode == "deterministic",
                                            warn_only=True)
+        census = _census() if mode == "fixed" else None
         runs, first, warned = [], None, set()
         for rep in range(reps):
             captured = []
@@ -233,11 +273,15 @@ def _ate_runs(solver, maps, poses_gt, datatype, reps):
                 return reduced(S, E, fixed_mask, *a, **k)
             if rep == 0 and mode == "default":
                 solve.solve_reduced = keep
+            counting = census if rep == 0 else None
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 t0 = time.perf_counter()
                 try:
-                    p = _poses(solver.run(maps))
+                    with (scope() if mode == "fixed"
+                          else contextlib.nullcontext()), (
+                            counting or contextlib.nullcontext()):
+                        p = _poses(solver.run(maps))
                 finally:
                     solve.solve_reduced = reduced
                 wall = time.perf_counter() - t0
@@ -266,11 +310,17 @@ def _ate_runs(solver, maps, poses_gt, datatype, reps):
         print(f"ate {datatype} {mode}: ATE spread over {reps} runs "
               f"{spread:.3e}; operations without a deterministic version "
               f"that ran: {sorted(warned) or 'none'}", flush=True)
+        if census is not None:
+            out[mode]["accumulating_on_card"] = dict(census.seen)
+            print(f"ate {datatype} {mode}: accumulating scatters on the "
+                  f"card in run 0 (op dtype: calls): "
+                  f"{dict(census.seen) or 'none'}", flush=True)
     torch.use_deterministic_algorithms(False)
     return out
 
 
-_SUM_OPS = ("aten::index_add_", "aten::index_put_", "aten::fill_")
+_SUM_OPS = ("aten::index_add_", "aten::index_put_", "aten::fill_",
+            "aten::sort", "aten::searchsorted")
 
 
 def _order_run(solver, maps, scope, metrics=None):
@@ -299,15 +349,20 @@ def _order_profile(solver, maps, scope):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         _order_run(solver, maps, scope)
-    ka = prof.key_averages()
-    return {e.key: dict(calls=e.count,
-                        device_ms=e.device_time_total / 1e3,
-                        cpu_ms=e.cpu_time_total / 1e3)
-            for e in ka if e.key in _SUM_OPS}
+    out = {}
+    for e in prof.key_averages():
+        # K3's instantiations (dtype, sign) under one name
+        key = "K3 seg_sum_kernel" if "seg_sum_kernel" in e.key else e.key
+        if key in _SUM_OPS or key.startswith("K3"):
+            r = out.setdefault(key, dict(calls=0, device_ms=0.0, cpu_ms=0.0))
+            r["calls"] += e.count
+            r["device_ms"] += e.device_time_total / 1e3
+            r["cpu_ms"] += e.cpu_time_total / 1e3
+    return out
 
 
 def order_part(datatype, reps):
-    """Wall of each --exec executor's direct solve with PyTorch's default
+    """Wall of each --exec executor's solve (--method) with PyTorch's default
     sums against the same solve under `ops/segment.deterministic()`, in
     --reps warm pairs (default first in even pairs, fixed first in odd);
     returns per executor the walls, level walls, ATEs, pose spreads, the
@@ -322,7 +377,8 @@ def order_part(datatype, reps):
     maps, poses_gt = _dataset(datatype)
     out = dict(datatype=datatype, maps=_run["maps"])
     for ex in _run["exec"]:
-        solver = classes[ex](datatype, method="direct", device=_run["device"])
+        solver = classes[ex](datatype, method=_run["method"],
+                             device=_run["device"])
         with _own_scope_off() as fixed:
             scopes = {"default": contextlib.nullcontext, "fixed": fixed}
             _order_run(solver, maps, scopes["default"])       # warm-up
@@ -385,13 +441,16 @@ def main(argv=None) -> int:
     ap.add_argument("--exec", default="device",
                     help="the executors of the order part, comma-separated "
                          "(device, dense, host)")
+    ap.add_argument("--method", default="direct",
+                    help="the order part's solve (direct or refine)")
     ap.add_argument("--profile", action="store_true",
                     help="the order part also profiles one run of each mode")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     args = ap.parse_args(argv)
     _run.update(device="cpu" if args.cpu else "cuda", maps=args.maps,
-                exec=args.exec.split(","), profile=args.profile)
+                exec=args.exec.split(","), profile=args.profile,
+                method=args.method)
     if not args.cpu and not torch.cuda.is_available():
         print("direct_paths: no CUDA device", file=sys.stderr)
         return 2

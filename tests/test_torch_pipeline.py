@@ -230,19 +230,21 @@ def test_pipeline_run_matches_reference(tmp_path, executor):
 
 
 def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
-    """The device executor runs direct mono, and only that, under
-    `deterministic()` (`ops/segment`, also `pipeline.deterministic`), which
-    restores the caller's settings and CUBLAS_WORKSPACE_CONFIG on the way
-    out; `pipeline.run` gets it from the solver. The host and dense
-    executors do not enter it: on the card it cost the host executor more
-    than half its wall, and the dense executor's default sums already give
-    the same poses on every run (PERF.md §6)."""
+    """The device and host executors run direct mono, and only that, under
+    `deterministic()` (`ops/segment`, also `pipeline.deterministic`): the
+    fixed-order scope, in which the segment sums of CUDA tensors run kernel
+    K3. It leaves PyTorch's global deterministic mode as it is, restores
+    CUBLAS_WORKSPACE_CONFIG on the way out, and `pipeline.run` gets it from
+    the solver. The dense executor does not enter it: its default sums
+    already give the same poses on every run (PERF.md §6)."""
     monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
     assert tpipeline.deterministic is tsegment.deterministic
     before = torch.are_deterministic_algorithms_enabled()
     with tpipeline.deterministic():
-        assert torch.are_deterministic_algorithms_enabled()
+        assert tsegment._fixed
+        assert torch.are_deterministic_algorithms_enabled() == before
         assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    assert not tsegment._fixed
     assert torch.are_deterministic_algorithms_enabled() == before
     assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
     seen = []
@@ -262,9 +264,9 @@ def test_direct_mono_solve_sums_in_fixed_order(tmp_path, monkeypatch):
                 tpipeline.run(data, 3, datatype, method=method,
                               progress=False, executor=executor,
                               device="cpu")
-                assert seen == ([True] if (datatype, method, executor)
-                                == ("mono", "direct", "device") else []), (
-                    executor)
+                fixed = (datatype, method) == ("mono", "direct")
+                assert seen == ([True] if fixed and executor != "dense"
+                                else []), (executor)
 
 
 @pytest.mark.parametrize("caller", [(False, False), (True, False),
