@@ -41,19 +41,25 @@ Phases, each printing its lines; any failure exits non-zero:
    `torch.matmul`) and the plain version, beside the bound;
 4b. kernel K3 (`seg_sum_fixed`, the port's fixed-order segment sum, which
    direct mono runs inside `ops/segment.deterministic()`) against its plain
-   version, `torch.equal`, in float32 and float64: K = 0, every index
+   version, bit for bit (torch.equal, signed zeros included; NaN where
+   the plain version has NaN), in float32 and float64: K = 0, every index
    dropped, empty segments, one long run of equal keys, unsorted keys,
-   lane-folded batches of every tail ((), 3, 6, 6x3, 3x3, 6x6), the
-   accumulate-into form with alpha = -1, `segment.seg_sum` inside the
-   scope, and the direct mono path's W lists at level 1 and the root (the
-   mono plan's (P, N, K), a [P, K, 6, 3] sum over wf into N); every case
-   also `torch.equal` to the CPU's `index_add_` on the raw index list,
-   which shares no sort or offsets with the card. At those
-   shapes, CUDA events over loops of calls: the kernel on a prebuilt plan,
-   plan + launch, the plain version, `index_add_` (atomics) and
+   lane-folded batches of every tail ((), 3, 6, 6x3, 3x3, 6x6), segments
+   of 2,017 entries at the start and the end of lanes (tails 1, 18, 36),
+   NaN, +-inf, subnormals and signed zeros (a base of -0.0s), the
+   accumulate-into form with alpha = -1 of each, `segment.seg_sum` inside
+   the scope, the direct mono path's W lists at level 1 and the root (the
+   mono plan's (P, N, K), a [P, K, 6, 3] sum over wf into N, every 17th
+   entry padding); every case also bit for bit the CPU's `index_add_` on
+   the raw index list, which shares no sort or offsets with the card.
+   The chain-floor probe (`kernels.add_chain`, one thread's dependent
+   adds) measures the card's add latency in both dtypes. At the
+   main-path shapes, CUDA events over loops of calls: the kernel on a prebuilt
+   plan, plan + launch, the plain version, `index_add_` (atomics) and
    `index_add_` under `torch.use_deterministic_algorithms(True)`, beside
-   the bound: the kept entries' values and positions and the offsets read
-   once plus the output written once, over 3.35 TB/s;
+   both bounds: bytes (the kept entries' values and positions and the
+   offsets read once plus the output written once, over 3.35 TB/s) and
+   the chain floor (the longest segment times the add latency);
 5. small trees solved on the GPU and on the CPU, by "refine" and by
    "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
    agree to atol 1e-9;
@@ -153,7 +159,11 @@ Phases, each printing its lines; any failure exits non-zero:
    held against its plain version in situ (in (e) those of the solver's
    second run), and every K3 plan built in a held run against the CPU's
    plan of the same index list; K3 must run on the fixed-order
-   paths (12a's device runs, pin="zero", (e)) and nowhere else.
+   paths (12a's device runs, pin="zero", (e)) and nowhere else. The K3
+   launch with the most values on one chain of 12a's held run (device
+   executor, 2,048 maps) and of (e)'s (host executor, 512 maps) is held
+   once more as phase 4b holds its cases and timed as phase 4b times its
+   shapes.
 
 The kernel launch counts are set to 0 just before each main path's timed
 run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
@@ -167,7 +177,8 @@ and host executors: the CLI's mono, 12a, 12b's 2,048-map run, 12e) and on
 no other. The line before the last is the kernel record (per kernel:
 launches, max error, kernel, plain, bound and library times and what the
 library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
-float32, K3 at the direct mono root in float64); the last line is {"ok":
+float32, K3 at the direct mono root in float64, with its chain floor);
+the last line is {"ok":
 true, "device": {...}}.
 """
 
@@ -734,24 +745,88 @@ def _k3_case(g, P, K, num, tail, dtype, lo=-3, hi=None, pad_every=0):
     return vals, idx, num
 
 
-def _k3_bound_ms(plan, T, esz):
-    """Least time of one K3 launch: the kept entries' values and positions
-    read once, the segment offsets read once and the output written once,
-    over the HBM rate."""
+def _k3_long(g, tail, dtype, n=2017, num=7):
+    """(vals, idx, num) on the card: three lanes whose long segments (n
+    entries: many of K3's shared-memory stages, no multiple of 32) lie at a
+    lane's start (lane 0, segment 0), at its end (lane 1, segment num - 1)
+    and at both (lane 2), among 300 entries of random index per lane
+    (dropped ones too), in shuffled list order."""
+    import torch
+    lanes = []
+    for segs in ([0], [num - 1], [0, num - 1]):
+        i = torch.cat([torch.full((n,), s, device="cuda") for s in segs]
+                      + [torch.randint(-3, num + 3, (300,), generator=g,
+                                       device="cuda")])
+        i = torch.cat([i, torch.full((2 * n - len(i) + 300,), num + 1,
+                                     device="cuda")])
+        lanes.append(i[torch.randperm(len(i), generator=g, device="cuda")])
+    idx = torch.stack(lanes)
+    vals = torch.randn(idx.shape + tail, generator=g, device="cuda",
+                       dtype=dtype)
+    return vals, idx, num
+
+
+def _k3_special(g, tail, dtype, P=2, K=900, num=300):
+    """(vals, idx, num, base) on the card: values with NaN, +-inf,
+    subnormals and signed zeros among normal ones (one in ten), and a base
+    for the accumulate-into form whose every other element is -0.0 (many
+    segments empty)."""
+    import torch
+    idx = torch.randint(-2, num + 2, (P, K), generator=g, device="cuda")
+    tiny = torch.finfo(dtype).smallest_normal / 4
+    pool = torch.tensor([math.nan, math.inf, -math.inf, tiny, -tiny,
+                         3 * tiny, 0.0, -0.0], dtype=dtype, device="cuda")
+    vals = torch.randn((P, K) + tail, generator=g, device="cuda",
+                       dtype=dtype)
+    pick = torch.rand(vals.shape, generator=g, device="cuda") < 0.1
+    which = torch.randint(0, len(pool), vals.shape, generator=g,
+                          device="cuda")
+    vals = torch.where(pick, pool[which], vals)
+    base = torch.randn((P, num) + tail, generator=g, device="cuda",
+                       dtype=dtype)
+    base.view(-1)[::2] = -0.0
+    return vals, idx, num, base
+
+
+def _same_bits(a, b) -> bool:
+    """a and b (one device) bit for bit equal, NaN against NaN whatever its
+    payload (the card's NaN need not carry the CPU's): the same NaN places
+    and the same bits, signed zeros included, everywhere else. Stricter
+    than torch.equal outside NaN (-0.0 != 0.0 here)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints)))
+
+
+def _k3_bound_ms(plan, T, esz, add_ns):
+    """Least time of one K3 launch, both terms: bytes (the kept entries'
+    values and positions, the offsets and the output, once each:
+    `kernels.seg_sum_bytes`) over the HBM rate, and the chain floor (the
+    longest segment's adds, each waiting for the last, at the measured
+    dependent add latency `add_ns`). Returns (bytes ms, chain ms, longest
+    segment)."""
+    from linearsfm_tpu_torch.ops import kernels
     P, num = plan.P, plan.num
     lens = (plan.off[1:] - plan.off[:-1]).view(P, num + 1)[:, :num]
-    kept = int(lens.sum())
-    rows = P * num
-    nbytes = (kept * (T * esz + 4) + (P * (num + 1) + 1) * 4
-              + rows * T * esz)
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    longest = int(lens.max()) if lens.numel() else 0
+    nbytes = kernels.seg_sum_bytes(int(lens.sum()), P, num, T, esz)
+    return nbytes / HBM_BYTES_PER_S * 1e3, longest * add_ns * 1e-6, longest
 
 
 def _max_err(a, b) -> float:
-    """Largest |a - b|, on a's device; 0.0 for empty tensors."""
+    """Largest |a - b|, on a's device, where the two differ (NaN against
+    NaN and equal infinities count as equal); 0.0 for empty tensors."""
+    import torch
     if not a.numel():
         return 0.0
-    return float((a - b.to(a.device)).abs().max())
+    b = b.to(a.device)
+    d = (a - b).abs()
+    d[(a == b) | (torch.isnan(a) & torch.isnan(b))] = 0
+    return float(d.max())
 
 
 def _k3_cpu_sum(vals, idx, num, out=None, alpha=1):
@@ -776,7 +851,9 @@ def _k3_hold(name, vals, plan, idx, out=None, alpha=1):
     """K3 on (vals, plan[, out, alpha]) against its plain version on the same
     inputs and against the CPU's `index_add_` on vals and the raw index
     list idx (`_k3_cpu_sum`, which shares no sort or offsets with the
-    card), both `torch.equal`; one launch (none for an empty output).
+    card), both bit for bit (`_same_bits`: torch.equal, signed zeros
+    included, and NaN where the reference has NaN); one launch (none for
+    an empty output).
     Returns the largest |kernel - reference| (0.0 when equal)."""
     import torch
     from linearsfm_tpu_torch.ops import kernels
@@ -790,30 +867,93 @@ def _k3_hold(name, vals, plan, idx, out=None, alpha=1):
         raise AssertionError(f"K3 {name}: not one launch")
     cpu = _k3_cpu_sum(vals, idx, plan.num, base, alpha)
     err = max(_max_err(got, ref), _max_err(got, cpu))
-    if not torch.equal(got, ref):
+    if not _same_bits(got, ref):
         raise AssertionError(f"K3 {name}: kernel != plain, max err {err}")
-    if not torch.equal(got.cpu(), cpu):
+    if not _same_bits(got.cpu(), cpu):
         raise AssertionError(f"K3 {name}: kernel != the CPU's index_add_ on "
                              f"the raw index list, max err {err}")
     return err
 
 
-def phase_k3(shapes):
-    """K3 (`seg_sum_fixed`) against its plain version on the card,
-    `torch.equal`, float32 and float64: K = 0, every index dropped, empty
-    segments, one long run, unsorted keys, lane-folded batches of every
-    tail, the accumulate-into form (alpha = -1) and the direct mono
-    path's W lists at level 1 and the root (`shapes`: (P, N, K) of the
-    mono plan; the congruence's [P, K, 6, 3] sum over wf into N features,
-    every 17th entry padding). Every case is also held against the CPU's
-    `index_add_` on the raw index list (`_k3_cpu_sum`), so the card's sort
-    and offsets face a reference that shares neither. At the main-path
-    shapes, CUDA events over loops of calls: the kernel on a prebuilt
-    plan, plan + launch, the plain version and two library yardsticks,
+def _k3_times(tag, vals, plan, idx, N, add_ns, reps=20):
+    """CUDA-event times of K3 on one input, as a new sum: the kernel on a
+    prebuilt plan (the lesser of two loops), plan + launch, the plain
+    version and two library yardsticks over the same flat keys,
     `index_add_` (atomics) and `index_add_` under
-    `torch.use_deterministic_algorithms(True)`, beside the bound. Returns
-    (the largest |kernel - reference| measured, the times by (level,
-    dtype))."""
+    `torch.use_deterministic_algorithms(True)`, beside the two bounds
+    (bytes, and the chain floor at `add_ns` per add); prints one line.
+    `bound_ms` is the larger of the two: `bound_by` "bytes", or
+    "operations" where the chain of dependent adds bounds the launch
+    (`floor_by` "chain"); `bytes_ms` and `chain_floor_ms` keep both."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    P = idx.shape[0]
+    tail = tuple(vals.shape[2:])
+    T = math.prod(tail)
+    keep = (idx >= 0) & (idx < N)
+    flat = torch.where(keep, idx + torch.arange(P, device="cuda")[:, None]
+                       * N, P * N).reshape(-1)
+    v2 = vals.reshape((-1,) + tail)
+    lib_out = torch.zeros((P * N + 1,) + tail, device="cuda",
+                          dtype=vals.dtype)
+
+    def library():
+        lib_out.zero_().index_add_(0, flat, v2)
+
+    def library_det():
+        torch.use_deterministic_algorithms(True)
+        try:
+            lib_out.zero_().index_add_(0, flat, v2)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    kernel = lambda: kernels.seg_sum_fixed(vals, plan)  # noqa: E731
+    wrapper = lambda: kernels.seg_sum_fixed(  # noqa: E731
+        vals, kernels.seg_plan(idx, N))
+    plain = lambda: kernels.seg_sum_fixed_ref(vals, plan)  # noqa: E731
+    k1, w = _loop_ms(kernel, reps), _loop_ms(wrapper, reps)
+    p = _loop_ms(plain, 3)
+    lib, det = _loop_ms(library, reps), _loop_ms(library_det, reps)
+    k2 = _loop_ms(kernel, reps)
+    ms = min(k1, k2)
+    byte_ms, chain_ms, longest = _k3_bound_ms(plan, T,
+                                              vals.element_size(), add_ns)
+    floor = max(byte_ms, chain_ms)
+    by = "bytes" if byte_ms >= chain_ms else "chain"
+    print(f"k3 time {tag} (tail {tail}, longest segment {longest} "
+          f"entries): kernel {k1:.4f}/{k2:.4f} ms on a prebuilt plan, plan "
+          f"+ launch {w:.4f} ms; bound: bytes {byte_ms:.4f} ms, chain floor "
+          f"{chain_ms:.4f} ms ({longest} adds at {add_ns:.3f} ns), so "
+          f"{by}: {floor / ms:.1%} of the kernel's time; library "
+          f"index_add_ (atomics) {lib:.4f} ms ({lib / ms:.2f}x the "
+          f"kernel's time), index_add_ under use_deterministic_algorithms "
+          f"{det:.4f} ms; plain {p:.3f} ms (CUDA events, loops of {reps}, "
+          f"plain 3)", flush=True)
+    return dict(ms=ms, wrapper_ms=w, plain_ms=p, library_ms=lib,
+                library_det_ms=det, bound_ms=floor,
+                bound_by="bytes" if by == "bytes" else "operations",
+                bytes_ms=byte_ms, chain_floor_ms=chain_ms, longest=longest,
+                floor_by=by)
+
+
+def phase_k3(shapes):
+    """K3 (`seg_sum_fixed`) against its plain version on the card, bit for
+    bit (`_k3_hold`), float32 and float64: K = 0, every index dropped,
+    empty segments, one long run, unsorted keys, lane-folded batches of
+    every tail, long segments (2,017 entries) at the start and the end of
+    lanes at tails 1, 18 and 36, NaN, +-inf, subnormals and signed zeros
+    (a base of -0.0s in the accumulate-into form), the accumulate-into form
+    (alpha = -1) of every case, and the direct mono path's W lists at level
+    1 and the root (`shapes`: (P, N, K) of the mono plan; the congruence's
+    [P, K, 6, 3] sum over wf into N features, every 17th entry padding).
+    Every case is also held against the CPU's `index_add_` on the raw
+    index list (`_k3_cpu_sum`), so the card's sort and offsets face a
+    reference that shares neither. The chain-floor probe measures the
+    card's dependent add latency in both dtypes
+    (`direct_paths.add_latency_ns`). At the main-path shapes (both dtypes),
+    CUDA events over loops of calls (`_k3_times`). The real paths' worst
+    launches are held and timed where phase 12 runs those paths
+    (`_K3InSitu.time_worst`). Returns (the largest |kernel - reference|
+    measured, the times by (shape, dtype), the add latencies by dtype)."""
     import torch
     from linearsfm_tpu_torch.ops import kernels, segment
 
@@ -838,26 +978,40 @@ def phase_k3(shapes):
                              long_idx, 6),
             "unsorted wide": _k3_case(g, 1, 20000, 3000, (6, 3), dtype),
         })
+        cases.update({f"long segments at lane ends {tail}":
+                      _k3_long(g, tail, dtype)
+                      for tail in ((), (6, 3), (6, 6))})
+        bases = {f"special values {tail}": _k3_special(g, tail, dtype)
+                 for tail in ((), (6, 3), (6, 6))}
+        cases.update({k: v[:3] for k, v in bases.items()})
         for name, (vals, idx, num) in cases.items():
             plan = kernels.seg_plan(idx, num)
             err = _k3_hold(f"{name} {dn}", vals, plan, idx)
-            base = torch.randn((idx.shape[0], num) + tuple(vals.shape[2:]),
-                               generator=g, device="cuda", dtype=dtype)
+            base = (bases[name][3] if name in bases else
+                    torch.randn((idx.shape[0], num) + tuple(vals.shape[2:]),
+                                generator=g, device="cuda", dtype=dtype))
             err = max(err, _k3_hold(f"{name} {dn} into, alpha -1", vals,
                                     plan, idx, base, alpha=-1))
             with segment.deterministic():
                 got = segment.seg_sum(vals, idx, num)
             cpu = _k3_cpu_sum(vals, idx, num)
             err = max(err, _max_err(got, cpu))
-            if not torch.equal(got.cpu(), cpu):
+            if not _same_bits(got.cpu(), cpu):
                 raise AssertionError(f"K3 {name} {dn}: seg_sum in the scope "
                                      f"!= the CPU's index_add_")
             max_err = max(max_err, err)
             print(f"k3 {name} {dn}: vals {list(vals.shape)} into {num} "
-                  f"segments, sum and accumulate-into (alpha -1) torch.equal "
-                  f"to the plain version and to the CPU's index_add_ on the "
-                  f"raw index list, max err {err:.3e} ok", flush=True)
-        del cases
+                  f"segments, sum and accumulate-into (alpha -1) bit for bit "
+                  f"the plain version and the CPU's index_add_ on the raw "
+                  f"index list, max err {err:.3e} ok", flush=True)
+        del cases, bases
+
+    from linearsfm_tpu_torch.tools.direct_paths import add_latency_ns
+    add_ns = {str(d).split(".")[-1]: add_latency_ns(d)
+              for d in (torch.float32, torch.float64)}
+    print(f"k3 chain-floor probe: dependent add latency {add_ns['float32']:.4f}"
+          f" ns (float32), {add_ns['float64']:.4f} ns (float64), one thread, "
+          f"CUDA events at 2**20 and 2**21 adds", flush=True)
 
     for level in ("level1", "root"):
         P, N, K = shapes[f"mono {level}"]
@@ -872,47 +1026,14 @@ def phase_k3(shapes):
             max_err = max(max_err, _k3_hold(tag, vals, plan, wf),
                           _k3_hold(f"{tag} into, alpha -1", vals, plan, wf,
                                    base, alpha=-1))
-            flat = (wf + torch.arange(P, device="cuda")[:, None] * N
-                    ).reshape(-1)
-            v2 = vals.reshape((-1, 6, 3))
-            lib_out = torch.zeros((P * N, 6, 3), device="cuda", dtype=dtype)
+            times[(level, dn)] = _k3_times(f"{tag} (6x3 over wf, every 17th "
+                                           f"entry padding)", vals, plan, wf,
+                                           N, add_ns[dn])
+            del vals, wf, plan, base
 
-            def library():
-                lib_out.zero_().index_add_(0, flat, v2)
-
-            def library_det():
-                torch.use_deterministic_algorithms(True)
-                try:
-                    lib_out.zero_().index_add_(0, flat, v2)
-                finally:
-                    torch.use_deterministic_algorithms(False)
-            kernel = lambda: kernels.seg_sum_fixed(vals, plan)  # noqa: E731
-            wrapper = lambda: kernels.seg_sum_fixed(  # noqa: E731
-                vals, kernels.seg_plan(wf, N))
-            plain = lambda: kernels.seg_sum_fixed_ref(vals, plan)  # noqa: E731
-            reps = 20
-            k1, w = _loop_ms(kernel, reps), _loop_ms(wrapper, reps)
-            p = _loop_ms(plain, 3)
-            lib, det = _loop_ms(library, reps), _loop_ms(library_det, reps)
-            k2 = _loop_ms(kernel, reps)
-            lens = (plan.off[1:] - plan.off[:-1]).view(P, N + 1)[:, :N]
-            ms = min(k1, k2)
-            bound = _k3_bound_ms(plan, 18, vals.element_size())
-            times[(level, dn)] = dict(ms=ms, wrapper_ms=w, plain_ms=p,
-                                      library_ms=lib, library_det_ms=det,
-                                      bound_ms=bound, bound_by="bytes")
-            print(f"k3 time {tag} (6x3 over wf, longest segment "
-                  f"{int(lens.max())} entries): kernel {k1:.4f}/{k2:.4f} ms "
-                  f"on a prebuilt plan, plan + launch {w:.4f} ms, bound "
-                  f"{bound:.4f} ms (bytes) = {bound / ms:.1%} of the "
-                  f"kernel's time; library index_add_ (atomics) {lib:.4f} "
-                  f"ms, index_add_ under use_deterministic_algorithms "
-                  f"{det:.4f} ms; plain {p:.3f} ms (CUDA events, loops of "
-                  f"{reps}, plain 3)", flush=True)
-            del vals, wf, plan, base, flat, v2, lib_out
     print(f"k3: phase {time.perf_counter() - t_phase:.2f} s, max |kernel - "
           f"reference| {max_err:.3e}", flush=True)
-    return max_err, times
+    return max_err, times, add_ns
 
 
 class _K3InSitu:
@@ -925,18 +1046,38 @@ class _K3InSitu:
     each sum is the CPU's in-order `index_add_` of the raw list. Counts
     the calls by dtype and the plans, keeps the largest (P, K, num, tail)
     seen and, across every instance, the largest |kernel - plain|
-    (`worst`)."""
+    (`worst`). Keeps a copy of the inputs of the launch with the most
+    values on one chain (the longest segment times the values per entry,
+    then P*K), with its call site and index list, for `time_worst`."""
 
     worst = 0.0
 
     def __enter__(self):
         from linearsfm_tpu_torch.ops import kernels
+        from linearsfm_tpu_torch.tools.direct_paths import _call_site
         self.calls, self.plans, self.largest = {}, 0, (0, 0, 0, ())
+        self.chain, self._lists = ((-1, 0), None), {}
         self._saved = kernels.seg_sum_fixed, kernels.seg_plan
         k3, seg_plan = self._saved
 
+        def keep_if_longest(vals, plan, out, alpha):
+            # each sum plans its own list (ops/segment): drop it once used
+            idx = self._lists.pop(id(plan), None)
+            lens = (plan.off[1:] - plan.off[:-1]).view(
+                plan.P, plan.num + 1)[:, :plan.num]
+            key = ((int(lens.max()) if lens.numel() else 0)
+                   * math.prod(vals.shape[2:]), plan.P * plan.K)
+            if key > self.chain[0]:
+                if idx is None:
+                    raise AssertionError("K3 in situ: a plan not built by "
+                                         "kernels.seg_plan in this run")
+                self.chain = (key, (
+                    _call_site(), vals.clone(), idx.clone(), plan.num, plan,
+                    None if out is None else out.clone(), alpha))
+
         def held(vals, plan, out=None, alpha=1):
             import torch
+            keep_if_longest(vals, plan, out, alpha)
             ref = kernels.seg_sum_fixed_ref(
                 vals, plan, None if out is None else out.clone(), alpha)
             got = k3(vals, plan, out, alpha)
@@ -964,6 +1105,7 @@ class _K3InSitu:
                                      f"{list(idx.shape)} over {num} != the "
                                      f"CPU's")
             self.plans += 1
+            self._lists[id(plan)] = idx
             return plan
         kernels.seg_sum_fixed, kernels.seg_plan = held, planned
         return self
@@ -971,7 +1113,33 @@ class _K3InSitu:
     def __exit__(self, *exc):
         from linearsfm_tpu_torch.ops import kernels
         kernels.seg_sum_fixed, kernels.seg_plan = self._saved
+        self._lists = {}
         return False
+
+    def time_worst(self, tag, add_ns):
+        """The kept launch with the most values on one chain, held once
+        more in its own form (`_k3_hold`: bit for bit the plain version and
+        the CPU's `index_add_` on its raw index list) and timed as a new
+        sum in both dtypes (`_k3_times`); its error joins `worst`. Fails
+        if no launch was kept."""
+        import torch
+        if self.chain[1] is None:
+            raise AssertionError(f"{tag}: no K3 launch kept")
+        site, vals, idx, num, plan, out, alpha = self.chain[1]
+        self.chain = ((-1, 0), None)
+        dn = str(vals.dtype).split(".")[-1]
+        what = (f"{tag}: the launch with the most values on one chain, at "
+                f"{site} (P, K, num) ({plan.P}, {plan.K}, {num}) {dn}")
+        form = "" if out is None else f" into, alpha {alpha}"
+        err = _k3_hold(what + form, vals, plan, idx, out, alpha)
+        _K3InSitu.worst = max(_K3InSitu.worst, err)
+        print(f"k3 {what}{form}: bit for bit the plain version and the "
+              f"CPU's index_add_ on the raw index list, max err {err:.3e} "
+              f"ok", flush=True)
+        for dtype in (torch.float32, torch.float64):
+            d = str(dtype).split(".")[-1]
+            _k3_times(f"{what} as a {d} new sum", vals.to(dtype), plan, idx,
+                      num, add_ns[d])
 
     def report(self, tag):
         """One line of what was held; fails if no call was held."""
@@ -2164,17 +2332,21 @@ def _counted(fn):
     return out, dict(kernels.launches), time.perf_counter() - t0
 
 
-def _held_counted(tag, fn, k1_at_root=True, fixed=False):
+def _held_counted(tag, fn, k1_at_root=True, fixed=False, add_ns=None):
     """`_counted(fn)` with every K1, K2 and K3 call held against its plain
     version in situ (`_K1InSitu`, `_K2InSitu`, `_K3InSitu`): K2 and (given
     `k1_at_root`) K1 must have been held at the root; the dense executor
     calls K1 at level 0 only. K3 must have been held on a `fixed`-order
-    path and must not have run on any other. The wall includes the
-    checks."""
+    path and must not have run on any other; given `add_ns` (the add
+    latencies by dtype), the run's K3 launch with the most values on one
+    chain is then held and timed (`_K3InSitu.time_worst`). The wall
+    includes the checks, not the timing."""
     with _K1InSitu() as k1, _K2InSitu() as k2, _K3InSitu() as k3:
         got = _counted(fn)
     if fixed:
         k3.report(tag)
+        if add_ns is not None:
+            k3.time_worst(tag, add_ns)
     elif k3.calls:
         raise AssertionError(f"{tag}: K3 ran outside the fixed-order scope "
                              f"{k3.calls}")
@@ -2190,7 +2362,7 @@ def _held_counted(tag, fn, k1_at_root=True, fixed=False):
     return got
 
 
-def phase_call_forms(datasets, oracle512):
+def phase_call_forms(datasets, oracle512, add_ns):
     """Phase 12, the JAX package's call forms on the port, no device
     argument anywhere (the card is the default). Every run whose launches
     it returns holds each K1, K2 and K3 call against its plain version in
@@ -2271,7 +2443,7 @@ def phase_call_forms(datasets, oracle512):
         del out
     out, launched[tag], wall = _held_counted(f"{tag} in situ",
                                              lambda: solver.run(maps),
-                                             fixed=True)
+                                             fixed=True, add_ns=add_ns)
     check(f"{tag} in situ", out, mono_ids)
     pa = _poses_by_id(out)
     same = [torch.equal(runs[0][1], p) for p in (runs[1][1], out.poses)]
@@ -2404,8 +2576,8 @@ def phase_call_forms(datasets, oracle512):
             first = vs_oracle(f"{tag} run 0", first, datatype="mono",
                               gt=gtm)
             if held:
-                out, launched[tag], wall2 = _held_counted(tag, run,
-                                                          fixed=True)
+                out, launched[tag], wall2 = _held_counted(
+                    tag, run, fixed=True, add_ns=add_ns)
             else:
                 out, launched[tag], wall2 = _counted(run)
             again = vs_oracle(f"{tag} run 1", out, datatype="mono", gt=gtm)
@@ -2479,7 +2651,7 @@ def main() -> int:
     shapes = _k2_shapes(datasets)
     k1_err, k1_times = phase_kernels()
     k2_err, k2_times = phase_k2(shapes)
-    k3_err, k3_times = phase_k3(shapes)
+    k3_err, k3_times, add_ns = phase_k3(shapes)
     phase_small_trees()
     paths, single = {}, {}
     for d, (maps, gt, tp) in datasets.items():
@@ -2491,7 +2663,7 @@ def main() -> int:
         paths.update(phase_dense(datasets, single, text_dir, cli_poses))
     launched, oracle512 = phase_tools(datasets)
     paths.update(launched)
-    paths.update(phase_call_forms(datasets, oracle512))
+    paths.update(phase_call_forms(datasets, oracle512, add_ns))
 
     def record(name, source, replaces, max_err, t, library, **extra):
         by_path = {d: c.get(name, 0) for d, c in paths.items()}
@@ -2523,6 +2695,9 @@ def main() -> int:
                max(k3_err, _K3InSitu.worst),
                k3_times[("root", "float64")], "index_add_ (atomics)",
                library_det_ms=k3_times[("root", "float64")]["library_det_ms"],
+               bytes_ms=k3_times[("root", "float64")]["bytes_ms"],
+               chain_floor_ms=k3_times[("root", "float64")]["chain_floor_ms"],
+               add_latency_ns=add_ns["float64"],
                note="the port's own kernel, no TPU kernel: a fixed-order "
                     "sum where the JAX package calls jax.ops.segment_sum")
     ]}), flush=True)

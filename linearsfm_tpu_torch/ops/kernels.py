@@ -15,7 +15,8 @@ K3 `seg_sum_fixed` (`csrc/segment_sum.cu`) replaces no TPU kernel: it is
 the port's own fixed-order segment sum, for the sums that PyTorch would add
 with atomics on the card and XLA adds in a fixed order (`ops/segment`
 runs it inside `segment.deterministic()`); `seg_plan` sorts an index list
-once for it.
+once for it. `add_chain`, beside it, is the probe that measures the card's
+dependent add latency (K3's chain floor), no kernel of the port.
 
 All sources are compiled with nvcc for sm_90a (one process per source, all
 started together) and linked into one shared library with a plain C
@@ -53,6 +54,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib: ctypes.CDLL | None = None   # loaded once per process
 _K2: dict = {}   # torch dtype -> K2's bound ctypes function, set by build()
 _K3: dict = {}   # torch dtype -> K3's bound ctypes function, set by build()
+_CHAIN: dict = {}   # torch dtype -> the add-latency probe, set by build()
+K3_MAX_TAIL = 256   # elements of an entry's value row K3 takes: its CTA size
 
 
 def _nvcc() -> str:
@@ -113,10 +116,16 @@ def build() -> ctypes.CDLL:
         _K2[dtype] = fn
     for dtype, fn in ((torch.float32, lib.seg_sum_f32),
                       (torch.float64, lib.seg_sum_f64)):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
             ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _K3[dtype] = fn
+    for dtype, fn in ((torch.float32, lib.add_chain_f32),
+                      (torch.float64, lib.add_chain_f64)):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _CHAIN[dtype] = fn
     _lib = lib
     return lib
 
@@ -436,6 +445,17 @@ def seg_plan(idx: torch.Tensor, num: int) -> SegPlan:
     return SegPlan(perm.to(torch.int32), off, P, K, num)
 
 
+def seg_sum_bytes(kept: int, P: int, num: int, T: int, esz: int,
+                  into: bool = False) -> int:
+    """The bytes one K3 launch must move: the `kept` entries' T values and
+    their int32 positions read once, the plan's P*(num + 1) + 1 offsets
+    read once, the P*num output rows of T values written once (and read
+    once in the accumulate-into form)."""
+    rows = P * num
+    return (kept * (T * esz + 4) + (P * (num + 1) + 1) * 4
+            + rows * T * esz * (2 if into else 1))
+
+
 def _seg_alpha(alpha) -> bool:
     """True to subtract; K3 adds (alpha 1) or subtracts (alpha -1)."""
     if alpha not in (1, -1):
@@ -488,7 +508,8 @@ def seg_sum_fixed(vals: torch.Tensor, plan: SegPlan,
     version on the CPU). vals [P, K, *tail] contiguous and the plan on one
     device; `out` [P, num, *tail] (contiguous, vals' dtype) is the
     accumulate-into form's input and output, updated in place; else a new
-    tensor from torch.empty (the kernel writes every element)."""
+    tensor from torch.empty (the kernel writes every element). The card
+    takes entries of at most K3_MAX_TAIL values (prod(tail))."""
     if vals.device.type == "cpu":
         return seg_sum_fixed_ref(vals, plan, out, alpha)
     neg = _seg_alpha(alpha)
@@ -516,17 +537,43 @@ def seg_sum_fixed(vals: torch.Tensor, plan: SegPlan,
                              f"{vals.dtype} {list(shape)} on {vals.device}")
         base = out
     T = math.prod(shape[2:])
+    if T > K3_MAX_TAIL:
+        raise ValueError(f"seg_sum_fixed: at most {K3_MAX_TAIL} values per "
+                         f"entry on the card, got {T}")
     if out.numel() == 0:
         return out
     fn = _K3.get(vals.dtype)
     if fn is None:
         build()
         fn = _K3[vals.dtype]
+    # one flag per row block of K3_MAX_TAIL // T rows: which blocks the
+    # ring kernel sums
+    flags = torch.empty(P * -(-num // (K3_MAX_TAIL // T)), dtype=torch.int8,
+                        device=vals.device)
     err = fn(plan.off.data_ptr(), plan.perm.data_ptr(), vals.data_ptr(),
              None if base is None else base.data_ptr(), out.data_ptr(),
-             P * num, num, T, int(neg),
+             flags.data_ptr(), P * num, num, T, int(neg),
              torch.cuda.current_stream(vals.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_sum_fixed: CUDA launch failed (error {err})")
     launches["seg_sum_fixed"] += 1
+    return out
+
+
+def add_chain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The chain-floor probe beside K3 (no kernel of the port, not counted
+    in `launches`): one thread on the card adds x[1] to x[0] n times (n a
+    multiple of 8), each add waiting for the last, in x's dtype (float32 or
+    float64) and with K3's add; returns the sum [1]. Its time over n is the
+    card's dependent add latency, which times K3's longest segment bounds
+    a launch from below."""
+    if (x.device.type != "cuda" or x.shape != (2,)
+            or x.dtype not in (torch.float32, torch.float64)):
+        raise ValueError("add_chain: a float32/float64 [2] CUDA tensor")
+    build()
+    out = torch.empty(1, dtype=x.dtype, device=x.device)
+    err = _CHAIN[x.dtype](x.data_ptr(), out.data_ptr(), n,
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"add_chain: CUDA launch failed (error {err})")
     return out

@@ -45,7 +45,16 @@ within each mode and the median of the pairs' fixed / default ratios.
 The executors' own scope is turned off while it runs (the mode decides).
 --profile adds one run of each mode under torch.profiler: the device time
 of the segment sums (`index_add_`, `index_put_`, K3's kernel and the sort
-and search of its plans) and of the fills of uninitialized memory.
+and search of its plans) and of the fills of uninitialized memory, read
+from the run's Chrome trace, and K3's launches by call site: each launch
+runs inside a "k3/<module>:<line>" range (its caller in the port), and
+each site prints its launches, device time, (P, num, tail, dtype), longest
+segment and summed bound (bytes, and the chain floor at the add latency
+the tool measures first), then the totals and the launch of the most
+device time. A
+trace in which any kernel launch, fill or copy lacks its device record
+(late in a long process the profiler drops some) is not summed: the run
+is profiled again, at most three times, then the tool fails.
 
 The card's name and power limit come first; one JSON file per part goes to
 --out. --cpu (with a small --maps) rehearses the tool on the CPU.
@@ -57,6 +66,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -321,6 +331,54 @@ def _ate_runs(solver, maps, poses_gt, datatype, reps, scope):
 
 _SUM_OPS = ("aten::index_add_", "aten::index_put_", "aten::fill_",
             "aten::sort", "aten::searchsorted")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# frames that lie between a K3 call site and the kernel's wrapper
+_PASS = tuple(os.path.join(_PKG, *f) for f in (("ops", "segment.py"),
+                                                ("ops", "kernels.py"),
+                                                ("tools", "direct_paths.py")))
+
+
+def _call_site():
+    """The K3 call site "<module path>:<line>" under the package: the first
+    frame of the port outside ops/segment, ops/kernels and this tool."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.startswith(_PKG) and path not in _PASS:
+            return f"{os.path.relpath(path, _PKG)}:{f.f_lineno}"
+        f = f.f_back
+    return "other"
+
+
+@contextlib.contextmanager
+def _k3_sites():
+    """While active every call of K3's wrapper (`kernels.seg_sum_fixed`) runs
+    inside a torch.profiler range "k3/<call site>", and yields a list that
+    collects one record per call: its site, (P, K, num, tail, dtype), the
+    form (a new sum or accumulate-into), whether it launched, and the plan's
+    offsets (read after the run, so the run gains no sync)."""
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    fn = kernels.seg_sum_fixed
+    calls = []
+
+    def labelled(vals, plan, out=None, alpha=1):
+        site = _call_site()
+        n0 = kernels.launches["seg_sum_fixed"]
+        with torch.profiler.record_function(f"k3/{site}"):
+            res = fn(vals, plan, out, alpha)
+        calls.append(dict(site=site, P=plan.P, K=plan.K, num=plan.num,
+                          tail=tuple(vals.shape[2:]),
+                          dtype=str(vals.dtype).split(".")[-1],
+                          esz=vals.element_size(), into=out is not None,
+                          launched=kernels.launches["seg_sum_fixed"] > n0,
+                          off=plan.off))
+        return res
+    kernels.seg_sum_fixed = labelled
+    try:
+        yield calls
+    finally:
+        kernels.seg_sum_fixed = fn
 
 
 def _order_run(solver, maps, scope, metrics=None):
@@ -340,25 +398,221 @@ def _order_run(solver, maps, scope, metrics=None):
     return p, wall, sum(lv) if lv else None
 
 
-def _order_profile(solver, maps, scope):
-    """Device time (ms) and calls of the segment sums and fills in one
-    profiled run under `scope`."""
+def _trace_totals(trace_path):
+    """From a torch.profiler Chrome trace: the calls, host time and device
+    time (ms) of each op of _SUM_OPS (the kernels, fills and copies launched
+    inside any of its calls), of K3 ("K3": its launches, each a direct
+    kernel and a ring kernel, and their summed device time), and K3's
+    device time (us) in each "k3/<site>" range, in the ranges' order
+    ("k3_us"). Raises
+    profile_k1.LostRecords when a launch, fill or copy of the trace (from
+    the start of its "order/run" range, if it has one) has no device
+    record: the totals would read short."""
+    import bisect
+    from linearsfm_tpu_torch.tools.profile_k1 import require_records
+    with open(trace_path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    run = [e["ts"] for e in ev if e.get("cat") == "user_annotation"
+           and e.get("name") == "order/run"]
+    require_records(trace_path, "direct_paths --profile",
+                    start=min(run) if run else None)
+    launch, dev, sites = {}, [], []
+    ops = {k: [] for k in _SUM_OPS}
+    for e in ev:
+        cat, name = e.get("cat"), e.get("name", "")
+        if cat in ("cuda_runtime", "cuda_driver"):
+            c = e.get("args", {}).get("correlation")
+            if c is not None:
+                launch[c] = e["ts"]
+        elif e.get("ph") != "X":
+            continue
+        elif cat == "cpu_op" and name in ops:
+            ops[name].append((e["ts"], e["ts"] + e["dur"]))
+        elif cat == "user_annotation" and name.startswith("k3/"):
+            sites.append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("kernel", "gpu_memset", "gpu_memcpy"):
+            dev.append(e)
+    out = {}
+    spans = {}
+    for name, iv in ops.items():
+        out[name] = dict(calls=len(iv), device_ms=0.0,
+                         cpu_ms=sum(b - a for a, b in iv) / 1e3)
+        merged = []
+        for a, b in sorted(iv):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        spans[name] = ([a for a, _ in merged], [b for _, b in merged])
+    sites.sort()
+    starts = [a for a, _ in sites]
+    k3_us = [0.0] * len(sites)
+    out["K3"] = dict(calls=0, device_ms=0.0)
+
+    def inside(starts, ends, t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i if i >= 0 and t <= ends[i] else None
+    for e in dev:
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        for name, (a, b) in spans.items():
+            if inside(a, b, t) is not None:
+                out[name]["device_ms"] += e["dur"] / 1e3
+        if "seg_sum" in e["name"]:       # K3's kernels (two per launch)
+            out["K3"]["calls"] += "seg_sum_ring" not in e["name"]
+            out["K3"]["device_ms"] += e["dur"] / 1e3
+            i = inside(starts, [b for _, b in sites], t)
+            if i is not None:
+                k3_us[i] += e["dur"]
+    out["k3_us"] = k3_us
+    return out
+
+
+def add_latency_ns(dtype, n=2**20):
+    """The card's dependent add latency in `dtype` (ns): K3's chain-floor
+    probe (`kernels.add_chain`, one thread, each add waiting for the last)
+    timed by CUDA events at n and 2n adds, the least of three differences
+    over n (the launch's own cost cancels)."""
     import torch
+    from linearsfm_tpu_torch.ops import kernels
+    x = torch.tensor([1.0, 2.0**-30], dtype=dtype, device="cuda")
+
+    def ms(m):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        kernels.add_chain(x, m)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+    ms(n)
+    return min(ms(2 * n) - ms(n) for _ in range(3)) / n * 1e6
+
+
+def _k3_census(calls, k3_us, add_ns=None):
+    """K3's launches by call site: launches, device time (ms; `k3_us`, one
+    entry per call in call order, from `_trace_totals`), summed over the
+    launches the byte bound (`kernels.seg_sum_bytes` over 3.35 TB/s), the
+    chain floor (the longest segment's adds at `add_ns[dtype]` ns each;
+    0 without `add_ns`) and the bound (the larger of the two, launch by
+    launch), the longest segment, and the distinct (P, num, tail, dtype);
+    and the launch of the most device time. Reads each call's plan offsets
+    (syncs). Raises profile_k1.LostRecords when the trace holds another
+    number of "k3/<site>" ranges than there were calls: the per-site
+    times would read short or land on the wrong sites."""
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools.profile_k1 import LostRecords
+    if len(k3_us) != len(calls):
+        raise LostRecords(f"K3 census: {len(calls)} calls of the wrapper, "
+                          f"{len(k3_us)} k3/<site> ranges in the trace")
+    sites, worst = {}, None
+    for c, us in zip(calls, k3_us):
+        P, num = c["P"], c["num"]
+        lens = (c["off"][1:] - c["off"][:-1]).view(P, num + 1)[:, :num]
+        longest = int(lens.max()) if lens.numel() else 0
+        nbytes = kernels.seg_sum_bytes(int(lens.sum()), P, num,
+                                       math.prod(c["tail"]), c["esz"],
+                                       c["into"])
+        byte_ms = nbytes / 3.35e12 * 1e3
+        chain_ms = longest * (add_ns or {}).get(c["dtype"], 0.0) * 1e-6
+        bound = max(byte_ms, chain_ms)
+        r = sites.setdefault(c["site"], dict(launches=0, device_ms=0.0,
+                                             byte_ms=0.0, chain_ms=0.0,
+                                             bound_ms=0.0, longest=0,
+                                             shapes={}))
+        r["launches"] += c["launched"]
+        r["device_ms"] += us / 1e3
+        r["byte_ms"] += byte_ms * c["launched"]
+        r["chain_ms"] += chain_ms * c["launched"]
+        r["bound_ms"] += bound * c["launched"]
+        r["longest"] = max(r["longest"], longest)
+        shape = f"({P}, {num}, {c['tail']}, {c['dtype']})"
+        r["shapes"][shape] = r["shapes"].get(shape, 0) + 1
+        if c["launched"] and (worst is None or us > worst["us"]):
+            worst = dict(site=c["site"], P=P, K=c["K"], num=num,
+                         tail=c["tail"], dtype=c["dtype"], into=c["into"],
+                         longest=longest, us=us, byte_ms=byte_ms,
+                         chain_ms=chain_ms)
+    return dict(sites=dict(sorted(sites.items(),
+                                  key=lambda x: -x[1]["device_ms"])),
+                worst=worst)
+
+
+def _order_profile(solver, maps, scope, attempts=3):
+    """Device time (ms) and calls of the segment sums and fills in one
+    profiled run under `scope`, and K3's census by call site
+    (`_k3_census`). A run whose trace lacks a device record of any launch,
+    fill or copy, or the range of any K3 call, is profiled again, at most `attempts` times in all; then
+    it fails (profile_k1.LostRecords)."""
+    import tempfile
+    import torch
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools.profile_k1 import LostRecords
     acts = [torch.profiler.ProfilerActivity.CPU]
+    add_ns = None
     if _run["device"] == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        _order_run(solver, maps, scope)
-    out = {}
-    for e in prof.key_averages():
-        # K3's instantiations (dtype, sign) under one name
-        key = "K3 seg_sum_kernel" if "seg_sum_kernel" in e.key else e.key
-        if key in _SUM_OPS or key.startswith("K3"):
-            r = out.setdefault(key, dict(calls=0, device_ms=0.0, cpu_ms=0.0))
-            r["calls"] += e.count
-            r["device_ms"] += e.device_time_total / 1e3
-            r["cpu_ms"] += e.cpu_time_total / 1e3
-    return out
+        add_ns = {str(d).split(".")[-1]: add_latency_ns(d)
+                  for d in (torch.float32, torch.float64)}
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    pad = torch.empty(1024, device=_run["device"])
+    for attempt in range(1, attempts + 1):
+        with _k3_sites() as calls, torch.profiler.profile(
+                activities=acts) as prof:
+            # late in a long process the profiler drops a session's first
+            # device records: 64 small fills outside the counted range
+            for _ in range(64):
+                pad.zero_()
+            _sync()
+            with torch.profiler.record_function("order/run"):
+                _order_run(solver, maps, scope)
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            try:
+                out = _trace_totals(trace)
+                out["k3_census"] = _k3_census(calls, out.pop("k3_us"),
+                                              add_ns)
+            except LostRecords as err:
+                print(f"order profile, attempt {attempt} of {attempts}: "
+                      f"{err}", flush=True)
+                continue
+        out["k3_census"]["add_ns"] = add_ns
+        return out
+    raise LostRecords(f"order profile: device records lost in {attempts} "
+                      f"profiled runs")
+
+
+def _print_census(tag, census):
+    """K3's census (`_k3_census`) as one line per call site, the totals
+    and the worst launch; nothing where K3 did not run."""
+    if not census["sites"]:
+        return
+    for site, r in census["sites"].items():
+        shapes = sorted(r["shapes"].items(), key=lambda x: -x[1])
+        more = f" and {len(shapes) - 3} more" if len(shapes) > 3 else ""
+        print(f"{tag}: K3 at {site}: {r['launches']} launches, device "
+              f"{r['device_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms (bytes "
+              f"{r['byte_ms']:.3f}, chain {r['chain_ms']:.3f}), longest "
+              f"segment {r['longest']}; (P, num, tail, dtype) x calls: "
+              + ", ".join(f"{k} x{n}" for k, n in shapes[:3]) + more,
+              flush=True)
+    tot = {k: sum(r[k] for r in census["sites"].values())
+           for k in ("launches", "device_ms", "byte_ms", "chain_ms",
+                     "bound_ms")}
+    print(f"{tag}: K3 in all: {tot['launches']} launches, device "
+          f"{tot['device_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"(bytes {tot['byte_ms']:.3f}, chain {tot['chain_ms']:.3f}; add "
+          f"latency {census.get('add_ns')} ns)", flush=True)
+    w = census["worst"]
+    if w is not None:
+        print(f"{tag}: K3's longest launch: {w['site']} (P, K, num) "
+              f"({w['P']}, {w['K']}, {w['num']}) tail {w['tail']} "
+              f"{w['dtype']}{' into' if w['into'] else ''}, longest "
+              f"segment {w['longest']}, device {w['us'] / 1e3:.4f} ms, byte "
+              f"bound {w['byte_ms']:.4f} ms, chain floor "
+              f"{w['chain_ms']:.4f} ms", flush=True)
 
 
 def order_part(datatype, reps):
@@ -422,8 +676,11 @@ def order_part(datatype, reps):
             for mode, ops in prof.items():
                 print(f"order {datatype} {ex} profile {mode}: " + "; ".join(
                     f"{k} {v['calls']} calls, device {v['device_ms']:.3f} ms"
-                    f", cpu {v['cpu_ms']:.3f} ms" for k, v in ops.items()),
-                    flush=True)
+                    + (f", cpu {v['cpu_ms']:.3f} ms" if "cpu_ms" in v
+                       else "") for k, v in ops.items()
+                    if k != "k3_census"), flush=True)
+                _print_census(f"order {datatype} {ex} profile {mode}",
+                              ops["k3_census"])
         out[ex] = rec
         del solver
     return out

@@ -30,6 +30,11 @@ From the profiler's Chrome trace it reports:
   sites;
 * the device busy time (union of kernel intervals) and span.
 
+Every total is read from a trace in which each kernel launch, fill and
+copy the host issued has its device record (`require_records`); late in a
+long process the profiler can drop some, and the tool then fails rather
+than print short totals.
+
 The K1 and K2 wrappers are wrapped here in `torch.profiler.record_function`
 ranges ("k1/<function>", "k2/<function>"); each level runs inside a
 "level<n>" range. Nothing of the port is changed, and the tool runs
@@ -251,7 +256,47 @@ def device_events_by_range(trace_path, prefix):
     return out
 
 
+_ISSUED = re.compile(r"Launch|Memset|Memcpy")
+
+
+class LostRecords(AssertionError):
+    """The profiler dropped device records of launches, fills or copies
+    that the host issued: totals summed from such a trace read short."""
+
+
+def record_counts(trace_path, start=None):
+    """(issued, recorded) in a torch.profiler Chrome trace: the kernel
+    launches, fills and copies the host issued (`cuda_runtime` /
+    `cuda_driver` events whose name matches Launch|Memset|Memcpy, at host
+    time >= start if given), and how many of them have a device record (a
+    kernel, fill or copy event with the same correlation id)."""
+    with open(trace_path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    dev = {e.get("args", {}).get("correlation") for e in ev
+           if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")}
+    issued = recorded = 0
+    for e in ev:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and _ISSUED.search(e.get("name", ""))
+                and (start is None or e["ts"] >= start)):
+            issued += 1
+            recorded += e.get("args", {}).get("correlation") in dev
+    return issued, recorded
+
+
+def require_records(trace_path, what, start=None):
+    """Raises LostRecords, naming both counts, unless every launch, fill and
+    copy of the trace (`record_counts`) has its device record."""
+    issued, recorded = record_counts(trace_path, start)
+    if recorded != issued:
+        raise LostRecords(f"{what}: the profiler lost device records: "
+                          f"{issued} kernel launches, fills and copies "
+                          f"issued, {recorded} with a device record")
+
+
 def _analyse(trace_path, labels):
+    require_records(trace_path, "profile_k1")
     dev, launch_ts, ranges = load_trace(trace_path)
     k1 = [e for e in dev if "blockcoo" in e["name"]]
     if len(k1) != len(labels):

@@ -47,10 +47,29 @@ def _index_add(vals, idx, num, base=None, alpha=1):
     return out[:P * num].view((P, num) + tail)
 
 
+def _long_segments(seed, tail, dtype, n=2017, num=7):
+    """(vals, idx, num): three lanes whose long segments (n entries, more
+    than several of K3's shared-memory stages and no multiple of 32) lie at
+    a lane's start (lane 0, segment 0), at its end (lane 1, segment num -
+    1) and at both (lane 2), among 300 entries of random index per lane
+    (dropped ones too), all in shuffled list order."""
+    g = np.random.default_rng(seed)
+    lanes = []
+    for segs in ([0], [num - 1], [0, num - 1]):
+        i = np.concatenate([np.full(n, s) for s in segs]
+                           + [g.integers(-3, num + 3, 300)])
+        i = np.concatenate([i, np.full(2 * n - len(i) + 300, num + 1)])
+        lanes.append(g.permutation(i))
+    idx = torch.tensor(np.stack(lanes))
+    vals = torch.tensor(g.standard_normal(idx.shape + tail)).to(dtype)
+    return vals, idx, num
+
+
 def _cases(dtype, tail):
     """Named (vals, idx, num): lane-folded with dropped and negative
     indices, empty segments, K = 0, every index dropped, one long run of
-    equal keys, and unsorted keys on a wide segment range."""
+    equal keys, unsorted keys on a wide segment range, and long segments at
+    the start and the end of lanes (`_long_segments`)."""
     g = np.random.default_rng(7)
     long_idx = torch.full((2, 300), 4, dtype=torch.int64)
     long_idx[1, ::7] = 2
@@ -62,7 +81,44 @@ def _cases(dtype, tail):
         "one long run": (torch.tensor(g.standard_normal(
             (2, 300) + tail)).to(dtype), long_idx, 6),
         "unsorted, wide": (*_case(5, 1, 2000, 700, tail, dtype), 700),
+        "long segments at lane ends": _long_segments(13, tail, dtype),
     }
+
+
+def _special(dtype, tail, subnormals=True):
+    """(vals, idx, num, base): values with NaN, +-inf, subnormals (unless
+    `subnormals` is False) and signed zeros among normal ones, and a base
+    for the accumulate-into form whose every other element is -0.0 (some
+    of its segments empty)."""
+    g = np.random.default_rng(17)
+    P, K, num = 2, 900, 300
+    idx = torch.tensor(g.integers(-2, num + 2, (P, K)))
+    tiny = np.finfo(np.float32 if dtype == torch.float32 else np.float64
+                    ).smallest_subnormal
+    if not subnormals:
+        tiny = 1.0
+    pool = np.array([np.nan, np.inf, -np.inf, tiny, -tiny, 3 * tiny, 0.0,
+                     -0.0])
+    v = g.standard_normal((P, K) + tail)
+    pick = g.random(v.shape)
+    v = np.where(pick < 0.1, g.choice(pool, v.shape), v)
+    vals = torch.tensor(v).to(dtype)
+    base = torch.tensor(g.standard_normal((P, num) + tail)).to(dtype)
+    base.view(-1)[::2] = -0.0
+    return vals, idx, num, base
+
+
+def _same_bits(a, b):
+    """True where a and b are bit for bit equal, NaN against NaN whatever
+    its payload (the card's NaN need not carry the CPU's): the same NaN
+    places and the same bits (signed zeros, subnormals, infinities)
+    everywhere else."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints)))
 
 
 @pytest.mark.parametrize("tail", TAILS, ids=str)
@@ -102,11 +158,29 @@ def test_fixed_sum_plain_equals_cpu_index_add(dtype, tail):
     assert kernels.launches == before        # the CPU launches nothing
 
 
+@pytest.mark.parametrize("tail", [(), (6, 3), (6, 6)], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fixed_sum_special_values(dtype, tail):
+    """NaN, +-inf, subnormals and signed zeros: K3's plain version is bit
+    for bit the CPU's `index_add_` (NaN where it has NaN), as a new sum and
+    accumulate-into with alpha = -1 on a base of -0.0s."""
+    vals, idx, num, base = _special(dtype, tail)
+    plan = kernels.seg_plan(idx, num)
+    got = kernels.seg_sum_fixed_ref(vals, plan)
+    assert _same_bits(got, _index_add(vals, idx, num))
+    assert torch.isnan(got).any() and torch.isinf(got).any()
+    into = kernels.seg_sum_fixed_ref(vals, plan, out=base.clone(), alpha=-1)
+    assert _same_bits(into, _index_add(vals, idx, num, base, alpha=-1))
+    # empty segments keep their -0.0
+    assert (torch.signbit(into) & (into == 0)).any()
+
+
 def test_fixed_sum_matches_jax_segment_sum():
     """Float64, against `jax.ops.segment_sum` per lane on the same numpy
-    inputs (dropped and negative indices, empty segments, every tail):
-    tolerance 0. XLA's CPU scatter adds each segment's values in list
-    order too, and the two agree bit for bit."""
+    inputs (dropped and negative indices, empty segments, long segments at
+    lane ends, every tail; NaN, +-inf and signed zeros): tolerance 0.
+    XLA's CPU scatter adds each segment's values in list order too, and the
+    two agree bit for bit."""
     import jax
     import jax.numpy as jnp
     jax.config.update("jax_enable_x64", True)
@@ -119,6 +193,14 @@ def test_fixed_sum_matches_jax_segment_sum():
                                          jnp.asarray(idx.numpy()))
             np.testing.assert_array_equal(got.numpy(), np.asarray(want),
                                           err_msg=f"{tail} {name}")
+        # XLA's CPU backend flushes subnormal sums to zero, index_add_ and
+        # the card keep them (test_fixed_sum_special_values): no subnormals
+        vals, idx, num, _ = _special(torch.float64, tail, subnormals=False)
+        got = kernels.seg_sum_fixed_ref(vals, kernels.seg_plan(idx, num))
+        want = jax.vmap(lambda v, i: jax.ops.segment_sum(
+            v, i, num_segments=num))(jnp.asarray(vals.numpy()),
+                                     jnp.asarray(idx.numpy()))
+        assert _same_bits(got, torch.tensor(np.asarray(want))), tail
 
 
 def test_reused_plan_equals_fresh_plan():
@@ -174,7 +256,8 @@ def test_scope_leaves_pytorch_mode_alone(monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_kernel_matches_plain_on_cuda(dtype):
     """On the card K3 is `torch.equal` to its plain version in every case
-    and tail, in both forms, one launch per call, and to the CPU's
+    and tail (the special values bit for bit, NaN where the plain version
+    has NaN), in both forms, one launch per call, and to the CPU's
     `index_add_` on the raw index list (which shares no sort or offsets
     with the card's plan); `seg_sum` and `index_add` launch it inside
     `deterministic()` and only there."""
@@ -208,4 +291,22 @@ def test_kernel_matches_plain_on_cuda(dtype):
                 assert torch.equal(segment.seg_sum(vals, idx, num), got)
             assert kernels.launches["seg_sum_fixed"] == n0 + (
                 got.numel() > 0)
+        vals, idx, num, base = _special(dtype, tail)
+        vals, idx, base = vals.cuda(), idx.cuda(), base.cuda()
+        plan = kernels.seg_plan(idx, num)
+        got = kernels.seg_sum_fixed(vals, plan)
+        assert _same_bits(got, kernels.seg_sum_fixed_ref(vals, plan)), tail
+        assert _same_bits(got.cpu(), _index_add(vals.cpu(), idx.cpu(),
+                                                num)), tail
+        into = kernels.seg_sum_fixed(vals, plan, out=base.clone(), alpha=-1)
+        assert _same_bits(into, kernels.seg_sum_fixed_ref(
+            vals, plan, out=base.clone(), alpha=-1)), tail
+        assert _same_bits(into.cpu(), _index_add(
+            vals.cpu(), idx.cpu(), num, base.cpu(), alpha=-1)), tail
+    # an entry of more values than a CTA has threads is refused
+    wide = torch.zeros((1, 3, kernels.K3_MAX_TAIL + 1), dtype=dtype,
+                       device="cuda")
+    with pytest.raises(ValueError, match="values per entry"):
+        kernels.seg_sum_fixed(wide, kernels.seg_plan(
+            torch.zeros((1, 3), dtype=torch.int64, device="cuda"), 2))
     torch.cuda.synchronize()

@@ -270,3 +270,173 @@ def test_tool_without_cuda_exits_1(monkeypatch, capsys, tool, argv):
     captured = capsys.readouterr()
     assert "no CUDA device (pass --cpu)" in captured.err
     assert captured.out == ""
+
+
+# ---------------------------------------------------------------------------
+# the profilers' totals need every device record
+# ---------------------------------------------------------------------------
+
+def _trace(tmp_path, events, drop=None):
+    """A torch.profiler-style Chrome trace: `events` are (cat, name, ts,
+    dur, correlation or None); the device event of correlation `drop` is
+    left out, as the profiler loses records, and so is the range named
+    `drop`."""
+    ev = []
+    for cat, name, ts, dur, corr in events:
+        if (cat in ("kernel", "gpu_memset") and corr == drop) or name == drop:
+            continue
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        ev.append(e)
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    return str(path)
+
+
+_K1_TRACE = [
+    ("user_annotation", "level1", 0, 1000, None),
+    ("user_annotation", "k1/blockcoo_to_dense_planned", 10, 40, None),
+    ("cuda_runtime", "cudaLaunchKernel", 20, 2, 1),
+    ("kernel", "blockcoo_dense_kernel<float>", 100, 5, 1),
+    ("cuda_runtime", "cudaMemsetAsync", 30, 2, 4),
+    ("gpu_memset", "Memset (Device)", 90, 1, 4),
+    ("user_annotation", "k2/inv3x3_wy", 60, 20, None),
+    ("cuda_runtime", "cudaLaunchKernel", 65, 2, 3),
+    ("kernel", "inv3x3_wy_kernel<float>", 150, 3, 3),
+    ("user_annotation", "schur/assemble", 200, 200, None),
+    ("cuda_runtime", "cuLaunchKernel", 210, 2, 2),
+    ("kernel", "gemm", 300, 7, 2),
+]
+
+
+@pytest.mark.parametrize("drop", [None, 2, 4], ids=["complete", "kernel",
+                                                    "fill"])
+def test_profile_k1_totals_need_every_device_record(tmp_path, monkeypatch,
+                                                    drop):
+    """`profile_k1._analyse` sums K1, the assembly, the Y sites, the
+    wrappers' kernels, busy time and span from a trace in which every
+    launch and fill has its device record, and raises, naming both counts,
+    when one is missing."""
+    from linearsfm_tpu_torch.tools import profile_k1
+    monkeypatch.setattr(profile_k1, "_out_bytes", [4096])
+    monkeypatch.setattr(profile_k1, "_k2_launches", [dict(
+        fn="inv3x3_wy", P=1, N=2, K=3, dtype="float32", bytes=1000,
+        level=1)])
+    labels = [dict(level=1, operand="A", stripe=None, stripes=0)]
+    trace = _trace(tmp_path, _K1_TRACE, drop)
+    if drop is not None:
+        with pytest.raises(profile_k1.LostRecords,
+                           match="4 kernel launches, fills and copies "
+                                 "issued, 3 with a device record"):
+            profile_k1._analyse(trace, labels)
+        return
+    rep = profile_k1._analyse(trace, labels)
+    assert rep["k1_us"] == 5 and rep["k2_us"] == 3
+    assert rep["assembly_us"] == 7
+    assert rep["y_sites_us"] == 3                 # K2, before the assembly
+    assert [(w["kernel"], w["us"]) for w in rep["wrapper_kernels"]] == [
+        ("Memset (Device)", 1)]
+    assert rep["busy_us"] == 16 and rep["span_us"] == 217
+    assert profile_k1.record_counts(trace) == (4, 4)
+
+
+_SUM_TRACE = [
+    ("cuda_runtime", "cudaLaunchKernel", -20, 1, 16),  # a warm-up fill
+    ("kernel", "fill_kernel", -15, 1, 16),
+    ("user_annotation", "order/run", 0, 300, None),
+    ("cpu_op", "aten::index_add_", 0, 20, None),
+    ("cuda_runtime", "cudaLaunchKernel", 5, 1, 10),
+    ("kernel", "index_add_kernel", 200, 4, 10),
+    ("cpu_op", "aten::sort", 30, 30, None),
+    ("cuda_runtime", "cudaLaunchKernel", 40, 1, 11),
+    ("kernel", "radix_sort", 210, 6, 11),
+    ("user_annotation", "k3/ops/schur.py:82", 70, 20, None),
+    ("cuda_runtime", "cudaLaunchKernel", 75, 1, 12),
+    ("kernel", "void (anonymous namespace)::seg_sum_direct<double, false>",
+     220, 5, 12),
+    ("cuda_runtime", "cudaLaunchKernelExC", 77, 1, 15),
+    ("kernel", "void (anonymous namespace)::seg_sum_ring<double, false>",
+     226, 4, 15),
+    ("user_annotation", "k3/ops/schur.py:513", 100, 20, None),
+    ("cuda_runtime", "cudaLaunchKernel", 105, 1, 13),
+    ("kernel", "void (anonymous namespace)::seg_sum_direct<double, false>",
+     240, 11, 13),
+    ("cpu_op", "aten::fill_", 130, 10, None),
+    ("cuda_runtime", "cudaLaunchKernel", 132, 1, 14),
+    ("kernel", "fill_kernel", 260, 2, 14),
+]
+
+
+@pytest.mark.parametrize("drop", [None, 16, 13, "k3/ops/schur.py:513"],
+                         ids=["complete", "before the run", "missing",
+                              "k3 range missing"])
+def test_direct_paths_totals_need_every_device_record(tmp_path, drop):
+    """`direct_paths._trace_totals` (the --profile totals) gives each
+    sum op's calls, host and device time, K3's device time and each K3
+    call site's from a trace in which every launch of the profiled run
+    (its "order/run" range on) has its device record, and raises, naming
+    both counts, when one is missing; a record lost before the run (the
+    session's warm-up fills) does not count. `_k3_census` groups the calls
+    by site with their longest segment and byte bound, and raises, naming
+    both counts, when a call's "k3/<site>" range is missing."""
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.tools import direct_paths, profile_k1
+    trace = _trace(tmp_path, _SUM_TRACE, drop)
+    if drop == 13:
+        with pytest.raises(profile_k1.LostRecords,
+                           match="6 kernel launches, fills and copies "
+                                 "issued, 5 with a device record"):
+            direct_paths._trace_totals(trace)
+        return
+    tot = direct_paths._trace_totals(trace)
+    idx = torch.tensor([[0, 0, 0, 2, 5], [1, 1, -1, 3, 3]])
+    plan = kernels.seg_plan(idx, 4)
+    calls = [dict(site=s, P=2, K=5, num=4, tail=(6,), dtype="float64",
+                  esz=8, into=False, launched=True, off=plan.off)
+             for s in ("ops/schur.py:82", "ops/schur.py:513")]
+    if drop == "k3/ops/schur.py:513":
+        assert tot["k3_us"] == [9]
+        with pytest.raises(profile_k1.LostRecords,
+                           match="2 calls of the wrapper, 1 k3/<site> "
+                                 "ranges"):
+            direct_paths._k3_census(calls, tot["k3_us"])
+        return
+    assert tot["aten::index_add_"] == dict(calls=1, device_ms=0.004,
+                                           cpu_ms=0.02)
+    assert tot["aten::sort"]["device_ms"] == pytest.approx(0.006)
+    assert tot["aten::fill_"]["device_ms"] == pytest.approx(0.002)
+    assert tot["aten::searchsorted"] == dict(calls=0, device_ms=0.0,
+                                             cpu_ms=0.0)
+    assert tot["K3"] == dict(calls=2, device_ms=pytest.approx(0.020))
+    assert tot["k3_us"] == [9, 11]
+    census = direct_paths._k3_census(calls, tot["k3_us"])
+    r = census["sites"]["ops/schur.py:513"]
+    assert r["launches"] == 1 and r["device_ms"] == pytest.approx(0.011)
+    assert r["longest"] == 3
+    kept = 8                                   # entries of index in [0, 4)
+    assert r["bound_ms"] == pytest.approx(kernels.seg_sum_bytes(
+        kept, 2, 4, 6, 8) / 3.35e12 * 1e3)
+    assert census["worst"]["site"] == "ops/schur.py:513"
+
+
+def test_order_profile_profiles_again_when_records_are_lost(monkeypatch):
+    """`direct_paths._order_profile` profiles the run again when the trace
+    lacks device records, at most three times in all, then fails."""
+    from linearsfm_tpu_torch.tools import direct_paths, profile_k1
+    runs, lost = [], [2]
+
+    def totals(_):
+        if lost[0]:
+            lost[0] -= 1
+            raise profile_k1.LostRecords("lost")
+        return {"k3_us": []}
+    monkeypatch.setattr(direct_paths, "_order_run",
+                        lambda *a: runs.append(a))
+    monkeypatch.setattr(direct_paths, "_trace_totals", totals)
+    monkeypatch.setitem(direct_paths._run, "device", "cpu")
+    out = direct_paths._order_profile(None, [], None)
+    assert len(runs) == 3 and out["k3_census"]["worst"] is None
+    lost[0] = 3
+    with pytest.raises(profile_k1.LostRecords, match="3 profiled runs"):
+        direct_paths._order_profile(None, [], None)
