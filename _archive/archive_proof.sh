@@ -8,7 +8,7 @@ out=../../chiprun_out/archive_proof
 mkdir -p $out
 python3 chip_smoke.py > $out/smoke.log 2>&1; rc=$?
 echo "smoke rc=$rc"
-grep -E "^k3 time|^k3: phase|^call forms .*(torch.equal|ATE)|^main (stereo|mono): (ATE|timed)|^entry cli mono: two|chip_smoke: all phases|: phase [0-9.]+ s|^build" $out/smoke.log | cut -c1-400
+grep -E "^k3 time|^k3: phase|^call forms .*(torch.equal|ATE)|^main (stereo|mono): (ATE|timed)|^entry cli mono: two|^bench |chip_smoke: all phases|: phase [0-9.]+ s|^build" $out/smoke.log | cut -c1-700
 tail -3 $out/smoke.log | cut -c1-3500
 python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_entry_points.py tests/test_torch_segment.py -m cuda 2>&1 | tail -1
 alone=$(mktemp -d); cp chip_smoke.py "$alone"/; (cd "$alone" && python3 chip_smoke.py > out.log 2>&1; echo "alone rc=$?"; tail -2 out.log); rm -rf "$alone"

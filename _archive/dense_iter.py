@@ -27,7 +27,7 @@ datasets = {d: cs.make_dataset(d) for d in ("stereo", "mono")}
 shapes = cs._k2_shapes(datasets)
 single = {}
 for d, (maps, gt, tp) in datasets.items():
-    _, single[d] = cs.phase_main_path(d, maps, gt, tp, shapes)
+    _, single[d], _ = cs.phase_main_path(d, maps, gt, tp, shapes)
 with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
     os.makedirs(os.path.join(tmp, "stereo"))
     from linearsfm_tpu_torch.io import localmap as lio

@@ -23,7 +23,7 @@ datasets = {d: cs.make_dataset(d) for d in ("stereo", "mono")}
 shapes = cs._k2_shapes(datasets)
 single = {}
 for d, (maps, gt, tp) in datasets.items():
-    _, single[d] = cs.phase_main_path(d, maps, gt, tp, shapes)
+    _, single[d], _ = cs.phase_main_path(d, maps, gt, tp, shapes)
 caps = {}
 for d, kw in (("stereo", {}), ("mono", dict(mixed_max_m=0))):
     maps, gt, _ = datasets[d]

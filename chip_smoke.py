@@ -163,23 +163,34 @@ Phases, each printing its lines; any failure exits non-zero:
    launch with the most values on one chain of 12a's held run (device
    executor, 2,048 maps) and of (e)'s (host executor, 512 maps) is held
    once more as phase 4b holds its cases and timed as phase 4b times its
-   shapes.
+   shapes;
+13. the bench (`phase_bench`): `python3 -m linearsfm_tpu_torch.tools.bench`
+   as a subprocess on the card at its defaults (2,048 covis maps) for
+   stereo, mono (`BENCH_TYPE=mono`), direct mono (`BENCH_METHOD=direct`,
+   the K3 path) and dense stereo (`BENCH_EXEC=dense`,
+   `BENCH_PROFILE_LEVELS=0`). Each must exit 0 and print one stdout line
+   with bench.py's keys, res_max <= 1e-10 where the solve computes one
+   (the device executor's refine), a logged ATE within 1e-6 of the
+   oracle's (dense stereo's default f32 levels: 1e-4, as phase 12) and
+   the card's line; its value is printed beside phase 6/7's timed rate,
+   as a record.
 
 The kernel launch counts are set to 0 just before each main path's timed
 run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
 after it, and likewise around each `compare_ate` run and `bench_root`
-(phase 11) and each of phase 12's runs; the warm run checks that K2 ran
-at the shapes phase 4 timed.
+(phase 11) and each of phase 12's runs; each bench process of phase 13
+does the same around its timed run and logs them. The warm run checks
+that K2 ran at the shapes phase 4 timed.
 The CLI runs report their own counts (pipeline log); the host run's are
 set to 0 before `cli.main` and read after it. Every path must launch K1
 and K2; K3 must launch on the fixed-order paths (direct mono on the device
-and host executors: the CLI's mono, 12a, 12b's 2,048-map run, 12e) and on
-no other. The line before the last is the kernel record (per kernel:
-launches, max error, kernel, plain, bound and library times and what the
-library yardstick is; K1 at the root stripe, K2 fused at the stereo root in
-float32, K3 at the direct mono root in float64, with its chain floor);
-the last line is {"ok":
-true, "device": {...}}.
+and host executors: the CLI's mono, 12a, 12b's 2,048-map run, 12e, the
+bench's direct mono) and on no other. The line before the last is the
+kernel record (per kernel: launches, max error, kernel, plain, bound and
+library times and what the library yardstick is; K1 at the root stripe,
+K2 fused at the stereo root in float32, K3 at the direct mono root in
+float64, with its chain floor); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -1222,16 +1233,15 @@ def make_dataset(datatype):
 def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
                     oracle=None, tag=None, in_situ=False):
     """One warm and one timed run of the `n`-map covis set (`tp`: its tree
-    plan, or None); returns the kernel launch counts of the timed run and
-    its poses by id. Fails unless every pose id is there and finite, the
-    ATE is within 1e-6 of `oracle` (default: the 2,048-map oracle's), every
-    level's res_max is <= 1e-10 and K1 and K2 launched. Given `shapes`, the
-    warm run's fused K2 launches must have the shapes phase 4 timed at
-    level 1 and the root. With `in_situ`, every K1 and K2 call of the warm
-    run is held against its plain version on its own inputs (`_K1InSitu`,
-    `_K2InSitu`), those of the root included. Given `tp`, it also prints
-    the `utils/flops`
-    model's f32 rate of the timed run (a model figure: the model's
+    plan, or None); returns the kernel launch counts of the timed run, its
+    poses by id and its maps_joined/s. Fails unless every pose id is there
+    and finite, the ATE is within 1e-6 of `oracle` (default: the 2,048-map
+    oracle's), every level's res_max is <= 1e-10 and K1 and K2 launched.
+    Given `shapes`, the warm run's fused K2 launches must have the shapes
+    phase 4 timed at level 1 and the root. With `in_situ`, every K1 and K2
+    call of the warm run is held against its plain version on its own
+    inputs (`_K1InSitu`, `_K2InSitu`), those of the root included. Given
+    `tp`, it also prints the `utils/flops` model's f32 rate of the timed run (a model figure: the model's
     per-block constants are not calibrated on the GPU)."""
     import numpy as np
     import torch
@@ -1330,7 +1340,7 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     if not res_max <= 1e-10:
         raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
     _require_launched(tag, launched)
-    return launched, _poses_by_id(out)
+    return launched, _poses_by_id(out), (n - 1) / wall
 
 
 def _pose_file_check(tag, path, datatype, n, poses_gt):
@@ -2238,7 +2248,7 @@ def phase_tools(datasets):
                                    covis_radius=6.0, covis_max=6)
     print(f"scale stereo 3499: dataset in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    launched["stereo 3499"], _ = phase_main_path(
+    launched["stereo 3499"], _, _ = phase_main_path(
         "stereo", maps, gt, None, None, n=3499, oracle=ORACLE_ATE_3499,
         tag="scale stereo 3499", in_situ=True)
     del maps, gt
@@ -2618,6 +2628,90 @@ def phase_call_forms(datasets, oracle512, add_ns):
     return launched
 
 
+# phase 13's cases: (path, the bench's environment knobs)
+BENCH_CASES = (
+    ("bench stereo", {}),
+    ("bench mono", {"BENCH_TYPE": "mono"}),
+    ("bench mono direct", {"BENCH_TYPE": "mono", "BENCH_METHOD": "direct"}),
+    ("bench dense stereo", {"BENCH_EXEC": "dense",
+                            "BENCH_PROFILE_LEVELS": "0"}),
+)
+
+
+def phase_bench(smi, rates):
+    """13. `python3 -m linearsfm_tpu_torch.tools.bench` as a subprocess on
+    the card for each of `BENCH_CASES` (2,048 covis maps): exit 0, one
+    stdout line with bench.py's keys (res_max, mfu and
+    achieved_f32_tflops on the device executor; no res_max on the direct
+    solve, which computes no PCG residual, as in bench.py), res_max <=
+    1e-10, the logged ATE within 1e-6 of the oracle's (the dense
+    executor's default refine, f32 information at its low levels, 1e-4,
+    as phase 12 holds it), K1 and K2 in the timed run's logged launches
+    and K3 exactly on direct mono; the card's line (`smi`) on stderr. Each
+    value is printed beside phase 6/7's own timed rate (`rates`, by data
+    type), as a record. Returns the launches by path."""
+    import re
+    import torch
+
+    t_phase = time.perf_counter()
+    # the bench processes need the card's memory this process has cached
+    torch.cuda.empty_cache()
+    paths = {}
+    for tag, knobs in BENCH_CASES:
+        datatype = knobs.get("BENCH_TYPE", "stereo")
+        device_exec = "BENCH_EXEC" not in knobs
+        direct = knobs.get("BENCH_METHOD") == "direct"
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "linearsfm_tpu_torch.tools.bench"],
+            cwd=HERE, env=dict(os.environ, **knobs), capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: exit {p.returncode}\n"
+                                 f"{p.stderr[-3000:]}")
+        lines = p.stdout.strip().splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"{tag}: stdout is not one line:\n"
+                                 f"{p.stdout[-2000:]}")
+        rec = json.loads(lines[0])
+        keys = {"metric", "value", "unit", "vs_baseline"}
+        if device_exec:
+            keys |= {"mfu", "achieved_f32_tflops"} | (
+                set() if direct else {"res_max"})
+        if set(rec) != keys or rec["unit"] != "maps_joined/s":
+            raise AssertionError(f"{tag}: keys {sorted(rec)}, want "
+                                 f"{sorted(keys)}: {rec}")
+        ate = float(re.search(r"ATE (\d+\.\d{9}) over", p.stderr).group(1))
+        launched = json.loads(re.search(
+            r"kernel launches \(timed run\): (\{.*\})", p.stderr).group(1))
+        timed = re.search(r"timed run: (.*)", p.stderr).group(1)
+        peak = re.search(r"peak device memory \(timed run\): (.*)",
+                         p.stderr).group(1)
+        oracle = ORACLE_ATE_2048[datatype]
+        tol = 1e-6 if device_exec else 1e-4
+        rate = rates[datatype]
+        print(f"{tag}: {rec['value']} maps_joined/s (phase 6/7's timed run "
+              f"{rate:.3f}, record only), res_max {rec.get('res_max')}, mfu "
+              f"{rec.get('mfu')}, {rec.get('achieved_f32_tflops')} TF/s, "
+              f"ATE {ate:.9f} (oracle {oracle:.9f}, diff {ate - oracle:+.3e}, "
+              f"tol {tol:g}), kernel launches {launched}, peak device "
+              f"memory {peak}, timed run {timed}, process {wall:.1f} s",
+              flush=True)
+        print(f"{tag}: {lines[0]}", flush=True)
+        if smi not in p.stderr:
+            raise AssertionError(f"{tag}: the card's line {smi!r} is not on "
+                                 f"stderr")
+        if not abs(ate - oracle) <= tol:
+            raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
+        if "res_max" in keys and not rec["res_max"] <= 1e-10:
+            raise AssertionError(f"{tag}: res_max {rec['res_max']} > 1e-10")
+        _require_launched(tag, launched, fixed=direct)
+        paths[tag] = launched
+    print(f"bench: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2653,9 +2747,10 @@ def main() -> int:
     k2_err, k2_times = phase_k2(shapes)
     k3_err, k3_times, add_ns = phase_k3(shapes)
     phase_small_trees()
-    paths, single = {}, {}
+    paths, single, rates = {}, {}, {}
     for d, (maps, gt, tp) in datasets.items():
-        paths[d], single[d] = phase_main_path(d, maps, gt, tp, shapes)
+        paths[d], single[d], rates[d] = phase_main_path(d, maps, gt, tp,
+                                                        shapes)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text_dir:
         launched, cli_poses = phase_entry_points(datasets, text_dir)
         paths.update(launched)
@@ -2664,6 +2759,7 @@ def main() -> int:
     launched, oracle512 = phase_tools(datasets)
     paths.update(launched)
     paths.update(phase_call_forms(datasets, oracle512, add_ns))
+    paths.update(phase_bench(smi, rates))
 
     def record(name, source, replaces, max_err, t, library, **extra):
         by_path = {d: c.get(name, 0) for d, c in paths.items()}

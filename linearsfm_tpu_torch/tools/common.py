@@ -16,10 +16,10 @@ import time
 import torch
 
 
-def open_device(cpu: bool, tool: str) -> str | None:
-    """"cpu" with `cpu`, else "cuda" after the card's line is printed; None
-    (with the reason on stderr) when there is no CUDA device: the caller
-    returns 1."""
+def open_device(cpu: bool, tool: str, file=None) -> str | None:
+    """"cpu" with `cpu`, else "cuda" after the card's line is printed (to
+    `file`, default stdout); None (with the reason on stderr) when there is
+    no CUDA device: the caller returns 1."""
     if cpu:
         return "cpu"
     if not torch.cuda.is_available():
@@ -27,7 +27,8 @@ def open_device(cpu: bool, tool: str) -> str | None:
         return None
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+                         text=True).stdout.strip(),
+          file=file or sys.stdout, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     return "cuda"
 

@@ -23,6 +23,10 @@ import torch
 import linearsfm_tpu
 from linearsfm_tpu_torch._parity import PARITY
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 JAX, PORT = "linearsfm_tpu", "linearsfm_tpu_torch"
 _EMPTY = inspect.Parameter.empty
 

@@ -34,6 +34,10 @@ from linearsfm_tpu_torch.ops import kernels
 from linearsfm_tpu_torch.utils import flops as tflops
 from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

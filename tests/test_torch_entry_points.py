@@ -19,6 +19,10 @@ from linearsfm_tpu_torch.core.tree import TreeSolver
 from linearsfm_tpu_torch.io import localmap as tio
 from linearsfm_tpu_torch.ops import kernels
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 ENTRIES = ["DeviceTreeSolver", "TreeSolver", "DenseTreeSolver",
            "pipeline.run"]
 

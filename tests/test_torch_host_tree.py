@@ -31,6 +31,10 @@ from linearsfm_tpu_torch.ops import solve as tsolve
 from linearsfm_tpu_torch.utils import checkpoint as tckpt
 from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -38,6 +38,10 @@ import torch
 
 from linearsfm_tpu_torch.ops import kernels
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 

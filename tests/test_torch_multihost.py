@@ -23,6 +23,10 @@ from linearsfm_tpu_torch import types
 from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver as TorchTree
 from linearsfm_tpu_torch.parallel import multihost as TMH
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -25,6 +25,10 @@ from linearsfm_tpu_torch.ops import kernels
 from linearsfm_tpu_torch.ops import rotations as trot
 from linearsfm_tpu_torch.ops import schur as tschur
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -38,6 +38,10 @@ from linearsfm_tpu_torch.io import localmap as tio
 from linearsfm_tpu_torch.ops import segment as tsegment
 from linearsfm_tpu_torch.utils import debug as tdebug
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 

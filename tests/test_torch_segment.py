@@ -18,6 +18,10 @@ import torch
 
 from linearsfm_tpu_torch.ops import kernels, segment
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 TAILS = [(), (3,), (6,), (6, 3), (3, 3), (6, 6)]
 DTYPES = [torch.float32, torch.float64]
 

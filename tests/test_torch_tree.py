@@ -31,6 +31,10 @@ from linearsfm_tpu_torch.ops import schur as tschur
 from linearsfm_tpu_torch.parallel import level as tlevel
 from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
+# one intra-op thread: the suite's workers share the machine's cores, and
+# an oversubscribed thread pool slows the trees' small ops many times over
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 
