@@ -40,7 +40,8 @@ Phases, each printing its lines; any failure exits non-zero:
    `torch.matmul`), the library yardstick (`torch.linalg.inv`, `take`,
    `torch.matmul`) and the plain version, beside the bound;
 4b. kernel K3 (`seg_sum_fixed`, the port's fixed-order segment sum, which
-   direct mono runs inside `ops/segment.deterministic()`) against its plain
+   the device and host executors run inside `ops/segment.deterministic()`)
+   against its plain
    version, bit for bit (torch.equal, signed zeros included; NaN where
    the plain version has NaN), in float32 and float64: K = 0, every index
    dropped, empty segments, one long run of equal keys, unsorted keys,
@@ -67,11 +68,13 @@ Phases, each printing its lines; any failure exits non-zero:
    noise 0.005, covis radius 6, at most 6 co-visible features per map; made
    with its plan before phase 3) through `DeviceTreeSolver("stereo",
    method="refine")`, as `bench.py` builds it (no device argument: the
-   card by default), one warm run and one timed run. Fails unless the
-   root lies on cuda:0, every pose id 1..2,048 is there and finite, the
-   ATE is within
-   1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10
-   and K1 and K2 launched. It also prints the `utils/flops` model's f32
+   card by default), one warm run, with every K3 call and plan held
+   against the plain version in situ (`_K3InSitu`), and one timed run.
+   Fails unless the root lies on cuda:0, every pose id 1..2,048 is there
+   and finite, the ATE is within
+   1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10,
+   K1, K2 and K3 launched and the two runs' pose ids, poses and features
+   are `torch.equal`. It also prints the `utils/flops` model's f32
    rate of the timed run and its share of the H100's 67 TFLOP/s f32 peak (a
    model figure: the per-block constants are not calibrated on the GPU);
 7. the mono main path: the same set in mono (pose 0 is an explicit block:
@@ -92,8 +95,10 @@ Phases, each printing its lines; any failure exits non-zero:
    executors on the 13-map stereo and 11-map mono trees: resumed from the
    newest checkpoint and from level 2's, poses within 1e-9 of the full run.
    Each run prints its wall, reader, host phases and kernel launches. The
-   CLI's mono solve runs twice (the direct mono solve sums in a fixed
-   order): the two pose files must be identical;
+   CLI's mono solve runs twice: the two pose files must be identical; the
+   in-process direct solves (held, then timed) and the host executor's
+   solve inside `cli.main` and once more on the maps it read must give
+   `torch.equal` results;
 9. the mesh paths on this card, every mesh four shards of cuda:0: (a) the
    stereo main path's set through `DeviceTreeSolver(..., mesh=Mesh(
    ("cuda:0",) * 4))`: its level modes (dp levels must be there and the
@@ -107,7 +112,9 @@ Phases, each printing its lines; any failure exits non-zero:
    over gloo (a free port, a 600 s timeout): ATE within 1e-6 of the
    oracle's and poses within 1e-8 of the single-process direct solve
    (and (d) of (c)); (e) the host executor over a pairs and an fs mesh on
-   a 64-map stereo tree, within 1e-9 of it without meshes;
+   a 64-map stereo tree, within 1e-9 of it without meshes. Each path runs
+   twice with `torch.equal` results: (a), (b) the warm and the timed run,
+   (c) local phases and top again, (d) the two ranks, (e) again;
 10. the dense planned executor (`core/dense_tree.DenseTreeSolver`): (a)
    both 2,048-map sets with method="refine" (stereo with the default f32
    information at the levels of at most 32 joined poses, the bench's
@@ -157,9 +164,10 @@ Phases, each printing its lines; any failure exits non-zero:
    within 1e-6 of that set's live oracle ATE and its poses within 1e-5 of
    the oracle's file. Every K1, K2 and K3 call of the paths it counts is
    held against its plain version in situ (in (e) those of the solver's
-   second run), and every K3 plan built in a held run against the CPU's
-   plan of the same index list; K3 must run on the fixed-order
-   paths (12a's device runs, pin="zero", (e)) and nowhere else. The K3
+   second run; the host executor's K3 calls of (c) run unheld), and
+   every K3 plan built in a held run against the CPU's plan of the same
+   index list; K3 must run on every path but the dense executor's, and on
+   no dense path. The K3
    launch with the most values on one chain of 12a's held run (device
    executor, 2,048 maps) and of (e)'s (host executor, 512 maps) is held
    once more as phase 4b holds its cases and timed as phase 4b times its
@@ -172,20 +180,30 @@ Phases, each printing its lines; any failure exits non-zero:
    with bench.py's keys, res_max <= 1e-10 where the solve computes one
    (the device executor's refine), a logged ATE within 1e-6 of the
    oracle's (dense stereo's default f32 levels: 1e-4, as phase 12) and
-   the card's line; its value is printed beside phase 6/7's timed rate,
-   as a record.
+   the card's line; the SHA-256 of its warm and timed runs' poses equal
+   to each other and to this process's run of the same solve (phases 6-7,
+   12a, 10a); its value is printed beside phase 6/7's timed rate, as a
+   record;
+14. grid mono 2,048 (`phase_grid_mono`): the set of
+   `_archive/grid_mono_2048.py` (pattern "grid", written as text and read
+   back) through `DeviceTreeSolver("mono", method=M)`, three runs for
+   each of refine and direct: `torch.equal` results, K1, K2 and K3 in
+   each run, and the ATE, res_max and non-finite count printed beside the
+   oracle's 2.572875460 (record only: the set amplifies rounding, PERF.md
+   §7).
 
 The kernel launch counts are set to 0 just before each main path's timed
 run (phases 6, 7, 9a, 9b, 9c's simulated run, 10a, 11b) and read just
 after it, and likewise around each `compare_ate` run and `bench_root`
-(phase 11) and each of phase 12's runs; each bench process of phase 13
-does the same around its timed run and logs them. The warm run checks
+(phase 11), each of phase 12's runs and each of phase 14's; each bench
+process of phase 13 does the same around its timed run and logs them.
+The warm run checks
 that K2 ran at the shapes phase 4 timed.
 The CLI runs report their own counts (pipeline log); the host run's are
 set to 0 before `cli.main` and read after it. Every path must launch K1
-and K2; K3 must launch on the fixed-order paths (direct mono on the device
-and host executors: the CLI's mono, 12a, 12b's 2,048-map run, 12e, the
-bench's direct mono) and on no other. The line before the last is the
+and K2; K3 must launch on every path of the device and host executors,
+which sum in the fixed order, and on no path of the dense executor
+(phase 10, 12's dense runs, the bench's dense stereo). The line before the last is the
 kernel record (per kernel: launches, max error, kernel, plain, bound and
 library times and what the library yardstick is; K1 at the root stripe,
 K2 fused at the stereo root in float32, K3 at the direct mono root in
@@ -228,21 +246,47 @@ def _loop_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-# K1 and K2 run on every path; K3 only where a solve sums in the fixed order
-# (direct mono on the device and host executors, `segment.deterministic()`)
+# K1 and K2 run on every path; K3 on every path but the dense executor's:
+# the device and host executors sum in the fixed order of
+# `segment.deterministic()`, the dense executor's sums repeat without it
 PATH_KERNELS = ("blockcoo_to_dense", "inv3x3_sym")
 K3 = "seg_sum_fixed"
 
 
-def _require_launched(tag, counts, fixed=False):
-    """Fails unless K1 and K2 (and, on a fixed-order path, K3) launched in
-    `counts`; K3 must not have launched on any other path."""
-    for k in PATH_KERNELS + ((K3,) if fixed else ()):
+def _require_launched(tag, counts, dense=False):
+    """Fails unless K1 and K2 launched in `counts`, and K3 too unless the
+    path is the dense executor's, where K3 must not have launched."""
+    for k in PATH_KERNELS + (() if dense else (K3,)):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"{tag}: kernel {k} was never launched")
-    if not fixed and counts.get(K3, 0):
-        raise AssertionError(f"{tag}: K3 launched {counts[K3]} times outside "
-                             f"the fixed-order scope")
+    if dense and counts.get(K3, 0):
+        raise AssertionError(f"{tag}: K3 launched {counts[K3]} times on the "
+                             f"dense executor")
+
+
+# `common.pose_digest` of a path's run, by tag, for phase 13's bench
+# processes to meet
+DIGESTS = {}
+
+
+def pose_digest(lm):
+    from linearsfm_tpu_torch.tools.common import pose_digest as digest
+    return digest(lm)
+
+
+def _repeats(tag, a, b):
+    """Fails unless two solved maps (one-lane stacks or host form) have
+    equal pose ids, poses and features, bit for bit (`torch.equal`)."""
+    import torch
+    from linearsfm_tpu_torch import types
+    ha, hb = types.host_fields(a), types.host_fields(b)
+    same = all(torch.equal(torch.as_tensor(getattr(ha, f)),
+                           torch.as_tensor(getattr(hb, f)))
+               for f in ("pose_ids", "poses", "feat_ids", "feats"))
+    print(f"{tag}: two runs' pose ids, poses and features torch.equal "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: two runs differ")
 
 
 # H100 SXM HBM rate and non-tensor f64 peak (NVIDIA data sheet, 700 W); the
@@ -1059,7 +1103,9 @@ class _K3InSitu:
     seen and, across every instance, the largest |kernel - plain|
     (`worst`). Keeps a copy of the inputs of the launch with the most
     values on one chain (the longest segment times the values per entry,
-    then P*K), with its call site and index list, for `time_worst`."""
+    then P*K), with its call site and index list, for `time_worst`. Every
+    plan built while active is kept with its index list until the exit
+    (a join's sums reuse its plans)."""
 
     worst = 0.0
 
@@ -1072,8 +1118,9 @@ class _K3InSitu:
         k3, seg_plan = self._saved
 
         def keep_if_longest(vals, plan, out, alpha):
-            # each sum plans its own list (ops/segment): drop it once used
-            idx = self._lists.pop(id(plan), None)
+            # a join's sums share the plans of its lists (ops/segment's
+            # `planned`): each plan is kept with its list for the run
+            idx = self._lists.get(id(plan), (None, None))[1]
             lens = (plan.off[1:] - plan.off[:-1]).view(
                 plan.P, plan.num + 1)[:, :plan.num]
             key = ((int(lens.max()) if lens.numel() else 0)
@@ -1116,7 +1163,7 @@ class _K3InSitu:
                                      f"{list(idx.shape)} over {num} != the "
                                      f"CPU's")
             self.plans += 1
-            self._lists[id(plan)] = idx
+            self._lists[id(plan)] = (plan, idx)
             return plan
         kernels.seg_sum_fixed, kernels.seg_plan = held, planned
         return self
@@ -1231,18 +1278,22 @@ def make_dataset(datatype):
 
 
 def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
-                    oracle=None, tag=None, in_situ=False):
+                    oracle=None, tag=None, in_situ=False, hold_k3=False):
     """One warm and one timed run of the `n`-map covis set (`tp`: its tree
     plan, or None); returns the kernel launch counts of the timed run, its
     poses by id and its maps_joined/s. Fails unless every pose id is there
     and finite, the ATE is within 1e-6 of `oracle` (default: the 2,048-map
-    oracle's), every level's res_max is <= 1e-10 and K1 and K2 launched.
-    Given `shapes`, the warm run's fused K2 launches must have the shapes
-    phase 4 timed at level 1 and the root. With `in_situ`, every K1 and K2
-    call of the warm run is held against its plain version on its own
-    inputs (`_K1InSitu`, `_K2InSitu`), those of the root included. Given
-    `tp`, it also prints the `utils/flops` model's f32 rate of the timed run (a model figure: the model's
-    per-block constants are not calibrated on the GPU)."""
+    oracle's), every level's res_max is <= 1e-10, K1, K2 and K3 launched
+    and the two runs' poses and features are `torch.equal` (the solver
+    sums in a fixed order). Given `shapes`, the warm run's fused K2
+    launches must have the shapes phase 4 timed at level 1 and the root.
+    With `in_situ`, every K1 and K2 call of the warm run is held against
+    its plain version on its own inputs (`_K1InSitu`, `_K2InSitu`), those
+    of the root included; with `hold_k3`, every K3 call and plan of the
+    warm run (`_K3InSitu`). Given `tp`, it also prints the `utils/flops`
+    model's f32 rate of the timed run (a model figure: the model's
+    per-block constants are not calibrated on the GPU). The timed run's
+    `common.pose_digest` goes to `DIGESTS[tag]`."""
     import numpy as np
     import torch
     from linearsfm_tpu_torch import types
@@ -1268,12 +1319,17 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
             if in_situ:
                 k1, k2 = (held.enter_context(_K1InSitu()),
                           held.enter_context(_K2InSitu()))
-            solver.run(maps)
+            if hold_k3:
+                k3 = held.enter_context(_K3InSitu())
+            warm = solver.run(maps)
     finally:
         kernels.inv3x3_wy = fused
     print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s "
-          f"{solver._last_timing}{' (in-situ checks included)' * in_situ}; "
+          f"{solver._last_timing}"
+          f"{' (in-situ checks included)' * (in_situ or hold_k3)}; "
           f"fused K2 shapes (P, N, K) by level {seen}", flush=True)
+    if hold_k3:
+        k3.report(f"{tag} warm run")
     if in_situ:
         _held_at_root(f"{tag} warm run", k1, k2)
         if k2.shapes != seen:
@@ -1340,6 +1396,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     if not res_max <= 1e-10:
         raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
     _require_launched(tag, launched)
+    _repeats(f"{tag} warm and timed", warm, out)
+    DIGESTS[tag] = pose_digest(out)
     return launched, _poses_by_id(out), (n - 1) / wall
 
 
@@ -1480,20 +1538,21 @@ def _warm_direct(datatype, maps, want_k1):
     method="direct")` once to warm up, with every K1 call held against the
     plain version in situ (`_K1InSitu`; `want_k1` float64 calls), then
     timed with per-level CUDA-event walls (the CLI subprocess pays CUDA and
-    library start-up in its solve)."""
+    library start-up in its solve). The two runs' poses must be equal."""
     import torch
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
     tag = f"entry warm device direct {datatype}"
     solver = DeviceTreeSolver(datatype, method="direct", device="cuda")
     with _K1InSitu() as held:
-        solver.run(maps)
+        first = solver.run(maps)
     held.report(tag, want_k1)
     metrics = LevelMetrics()
     t0 = time.perf_counter()
-    solver.run(maps, metrics=metrics, time_levels=True)
+    again = solver.run(maps, metrics=metrics, time_levels=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _repeats(tag, first, again)
     print(f"{tag}: solve {wall:.3f} s in process (warm), host phases "
           f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }, "
           f"level walls ms "
@@ -1557,6 +1616,7 @@ def phase_entry_points(datasets, tmp):
     import numpy as np
     from synth import generate as gen
     from linearsfm_tpu_torch import cli, native
+    from linearsfm_tpu_torch.core import pipeline
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.core.tree import TreeSolver
     from linearsfm_tpu_torch.io import localmap as lio
@@ -1587,9 +1647,8 @@ def phase_entry_points(datasets, tmp):
         cli_poses[d], got = _cli_subprocess(
             f"entry cli {d}", data[d], d, n, datasets[d][1], tmp)
         launched[f"cli {d}"] = got["launches"]
-    # the device executor sums direct mono in a fixed order
-    # (ops/segment.deterministic): a second process writes the same pose
-    # file, byte for byte
+    # the device executor sums in a fixed order (ops/segment.deterministic):
+    # a second process writes the same pose file, byte for byte
     _cli_subprocess("entry cli mono (again)", data["mono"], "mono", n,
                     datasets["mono"][1], tmp, run=1)
     same = [open(os.path.join(tmp, f"pose_cli_mono{r}.txt"), "rb").read()
@@ -1613,8 +1672,15 @@ def phase_entry_points(datasets, tmp):
     pkg_log.addHandler(handler)
     pkg_log.setLevel(logging.INFO)
     out = io.StringIO()
+    # the root the CLI's solver returns, for the repeat check below
+    solved, run = [], TreeSolver.run
+
+    def keep_root(self, *a, **k):
+        solved.append(run(self, *a, **k))
+        return solved[-1]
     for k in kernels.launches:
         kernels.launches[k] = 0
+    TreeSolver.run = keep_root
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -1623,6 +1689,7 @@ def phase_entry_points(datasets, tmp):
                            "host", "--check"])
     finally:
         pkg_log.removeHandler(handler)
+        TreeSolver.run = run
     wall = time.perf_counter() - t0
     launched["host stereo"] = dict(kernels.launches)
     if rc != 0 or "LinearSFM Check: OK" not in out.getvalue():
@@ -1648,14 +1715,19 @@ def phase_entry_points(datasets, tmp):
           f"{diff:.3e} (limit 2e-6)", flush=True)
     if not diff <= 2e-6:
         raise AssertionError(f"{tag}: pose files differ by {diff}")
-    # the host executor once more, its K1 calls held in situ
+    # the host executor once more on the maps the CLI read, its K1 calls
+    # held in situ
+    text_maps = pipeline.load_local_maps(data["stereo"], n, "stereo")
     t0 = time.perf_counter()
     with _K1InSitu() as held:
-        TreeSolver("stereo", device="cuda").run(datasets["stereo"][0])
+        again = TreeSolver("stereo", device="cuda").run(text_maps)
     held.report(f"{tag} (again, {time.perf_counter() - t0:.1f} s)",
                 launched["host stereo"]["blockcoo_to_dense"])
+    if len(solved) != 1:
+        raise AssertionError(f"{tag}: the CLI solved {len(solved)} times")
+    _repeats(f"{tag}, the CLI's solve and again", solved[0], again)
     for path, counts in launched.items():
-        _require_launched(f"entry {path}", counts, fixed=path == "cli mono")
+        _require_launched(f"entry {path}", counts)
 
     for datatype, m in (("stereo", 13), ("mono", 11)):
         maps, _, _ = gen.make_dataset(m, datatype, noise=0.01, seed=5)
@@ -1736,7 +1808,8 @@ def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
     method="refine", mesh=mesh)`: the level modes, a warm run with every K1
     and K2 call of the tp level held in situ, then a timed run (counts from
     0) against the oracle's ATE and the single-device run's poses
-    (`single`). Returns the timed run's launches."""
+    (`single`), and equal to the warm run. Returns the timed run's
+    launches."""
     import torch
     from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
     from linearsfm_tpu_torch.ops import kernels
@@ -1762,7 +1835,7 @@ def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
     solver._level_tp = tp_in_situ
     t0 = time.perf_counter()
     try:
-        solver.run(maps)
+        warm = solver.run(maps)
     finally:
         del solver._level_tp
     print(f"{tag}: warm run {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1810,6 +1883,7 @@ def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
         raise AssertionError(f"{tag}: poses differ from the single-device "
                              f"run by {diff}")
     _require_launched(tag, launched)
+    _repeats(f"{tag} warm and timed", warm, out)
     return launched
 
 
@@ -1842,22 +1916,30 @@ def _multihost(maps, poses_gt):
         if not abs(ate - oracle) <= 1e-6 or not diff <= 1e-8:
             raise AssertionError(f"{tag}: ATE {ate}, pose diff {diff}")
 
+    def simulated():
+        stacks = [MH.local_stacked(maps, "stereo", 4, h, kw)
+                  for h in range(4)]
+        t1 = time.perf_counter()
+        root = MH.run_multihost(maps, "stereo", n_hosts=4, host_id=0,
+                                gather=lambda _mine: stacks, solver_kw=kw)
+        return root, time.perf_counter() - t1
+
     for k in kernels.launches:
         kernels.launches[k] = 0
     t0 = time.perf_counter()
-    stacks = [MH.local_stacked(maps, "stereo", 4, h, kw) for h in range(4)]
-    t1 = time.perf_counter()
-    sim = _poses_by_id(MH.run_multihost(maps, "stereo", n_hosts=4, host_id=0,
-                                        gather=lambda _mine: stacks,
-                                        solver_kw=kw))
+    first, top = simulated()
     launched = dict(kernels.launches)
+    sim = _poses_by_id(first)
     L, block, owners = MH.plan_chunks(len(maps), 4)
     print(f"multihost simulated: 4 hosts, blocks of {block} maps, owners "
-          f"{owners}; local phases {t1 - t0:.3f} s, gather and top "
-          f"{time.perf_counter() - t1:.3f} s; kernel launches {launched}",
+          f"{owners}; local phases {time.perf_counter() - t0 - top:.3f} s, "
+          f"gather and top {top:.3f} s; kernel launches {launched}",
           flush=True)
     check("multihost simulated", sim)
     _require_launched("multihost", launched)
+    _repeats("multihost simulated, local phases and top", first,
+             simulated()[0])
+    del first
 
     # the workers share the card: hand back this process's cached blocks
     gc.collect()
@@ -1892,8 +1974,16 @@ def _multihost(maps, poses_gt):
                                      f"{p.returncode}\n{outs[r][-3000:]}")
         print(f"multihost two processes (gloo, both on cuda:0): exit 0 and "
               f"0 in {wall:.3f} s", flush=True)
-        for r in range(2):
-            f = np.load(os.path.join(tmp, f"result_{r}.npz"))
+        ranks = [np.load(os.path.join(tmp, f"result_{r}.npz"))
+                 for r in range(2)]
+        # each rank runs the top levels itself, from the same gathered roots
+        same = all(np.array_equal(ranks[0][k], ranks[1][k])
+                   for k in ("ids", "poses"))
+        print(f"multihost two processes: the ranks' pose ids and poses "
+              f"equal {same}", flush=True)
+        if not same:
+            raise AssertionError("multihost: the two ranks' roots differ")
+        for r, f in enumerate(ranks):
             got = {int(i): p for i, p in zip(f["ids"], f["poses"])}
             check(f"multihost rank {r}", got)
             d = _max_diff(f"multihost rank {r}", got, sim)
@@ -1922,17 +2012,20 @@ def _host_mesh():
     def count(*a, **k):
         sharded.append(a[7])
         return fn(*a, **k)
+    def meshes():
+        return TreeSolver(
+            "stereo", device="cuda", mesh=Mesh(("cuda:0",) * 4, "pairs"),
+            root_mesh=Mesh(("cuda:0",) * 4, "fs"), root_shard_min=32,
+        ).run(maps)
     for k in kernels.launches:
         kernels.launches[k] = 0
     shard_solve.sharded_schur_solve = count
     t0 = time.perf_counter()
     try:
-        got = _poses_by_id(TreeSolver(
-            "stereo", device="cuda", mesh=Mesh(("cuda:0",) * 4, "pairs"),
-            root_mesh=Mesh(("cuda:0",) * 4, "fs"), root_shard_min=32,
-        ).run(maps))
+        root = meshes()
     finally:
         shard_solve.sharded_schur_solve = fn
+    got = _poses_by_id(root)
     diff = _max_diff("host mesh", got, plain)
     print(f"host mesh: 64-map stereo tree, host executor over a 4-shard "
           f"pairs mesh and fs root mesh in {time.perf_counter() - t0:.3f} s "
@@ -1942,6 +2035,7 @@ def _host_mesh():
     if not sharded or not diff <= 1e-9:
         raise AssertionError(f"host mesh: sharded joins {sharded}, diff "
                              f"{diff}")
+    _repeats("host mesh", root, meshes())
 
 
 def phase_mesh(datasets, single):
@@ -1967,9 +2061,10 @@ def _dense_main_path(datatype, maps, poses_gt, single, **solver_kw):
     device="cuda", **solver_kw)`: a warm run with every K2 call and the
     level-0 K1 calls held against their plain versions in situ, then a
     timed run (counts from 0). Fails unless every pose id is there and
-    finite and K1 and K2 launched; prints the ATE beside the oracle's and
-    the poses' max |diff| from phases 6-7's (`single`). Returns the timed
-    run's launches and the root's caps (M, N)."""
+    finite, K1 and K2 launched and K3 did not; prints the ATE beside the
+    oracle's and the poses' max |diff| from phases 6-7's (`single`).
+    Returns the timed run's launches and the root's caps (M, N); the timed
+    run's `common.pose_digest` goes to `DIGESTS[tag]`."""
     import numpy as np
     import torch
     from linearsfm_tpu_torch.core.dense_tree import DenseTreeSolver
@@ -2040,7 +2135,8 @@ def _dense_main_path(datatype, maps, poses_gt, single, **solver_kw):
           f"{ate - oracle:+.3e}), pose max |diff| vs the device executor's "
           f"main path {diff:.3e}, {len(got)} poses, kernel launches "
           f"{launched}", flush=True)
-    _require_launched(tag, launched)
+    _require_launched(tag, launched, dense=True)
+    DIGESTS[tag] = pose_digest(out)
     return launched, plan.levels[-1].caps_out
 
 
@@ -2114,7 +2210,7 @@ def phase_dense(datasets, single, text_dir, cli_poses):
     if not diff <= 2e-6:
         raise AssertionError(f"dense cli stereo: pose files differ by {diff}")
     for path, counts in launched.items():
-        _require_launched(path, counts)
+        _require_launched(path, counts, dense=True)
     print(f"dense: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
     return launched
 
@@ -2342,24 +2438,31 @@ def _counted(fn):
     return out, dict(kernels.launches), time.perf_counter() - t0
 
 
-def _held_counted(tag, fn, k1_at_root=True, fixed=False, add_ns=None):
+def _held_counted(tag, fn, k1_at_root=True, dense=False, hold_k3=True,
+                  add_ns=None):
     """`_counted(fn)` with every K1, K2 and K3 call held against its plain
     version in situ (`_K1InSitu`, `_K2InSitu`, `_K3InSitu`): K2 and (given
     `k1_at_root`) K1 must have been held at the root; the dense executor
-    calls K1 at level 0 only. K3 must have been held on a `fixed`-order
-    path and must not have run on any other; given `add_ns` (the add
-    latencies by dtype), the run's K3 launch with the most values on one
-    chain is then held and timed (`_K3InSitu.time_worst`). The wall
-    includes the checks, not the timing."""
-    with _K1InSitu() as k1, _K2InSitu() as k2, _K3InSitu() as k3:
+    calls K1 at level 0 only. K3 must have been held, unless the path is
+    the dense executor's (`dense`), where it must not have run, or
+    `hold_k3` is False (its calls then run unheld: each held call costs a
+    copy to the host and the CPU's sum); given `add_ns` (the add latencies
+    by dtype), the run's K3 launch with the most values on one chain is
+    then held and timed (`_K3InSitu.time_worst`). The wall includes the
+    checks, not the timing."""
+    with contextlib.ExitStack() as held:
+        k1, k2 = (held.enter_context(_K1InSitu()),
+                  held.enter_context(_K2InSitu()))
+        k3 = held.enter_context(_K3InSitu()) if hold_k3 or dense else None
         got = _counted(fn)
-    if fixed:
+    if dense:
+        if k3.calls:
+            raise AssertionError(f"{tag}: K3 ran on the dense executor "
+                                 f"{k3.calls}")
+    elif hold_k3:
         k3.report(tag)
         if add_ns is not None:
             k3.time_worst(tag, add_ns)
-    elif k3.calls:
-        raise AssertionError(f"{tag}: K3 ran outside the fixed-order scope "
-                             f"{k3.calls}")
     if k1_at_root:
         _held_at_root(tag, k1, k2)
     else:
@@ -2453,7 +2556,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
         del out
     out, launched[tag], wall = _held_counted(f"{tag} in situ",
                                              lambda: solver.run(maps),
-                                             fixed=True, add_ns=add_ns)
+                                             add_ns=add_ns)
     check(f"{tag} in situ", out, mono_ids)
     pa = _poses_by_id(out)
     same = [torch.equal(runs[0][1], p) for p in (runs[1][1], out.poses)]
@@ -2464,6 +2567,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
     if not all(same):
         raise AssertionError(f"{tag}: the runs' poses differ")
     near_oracle(tag, _ate_of(pa, gt), oracle)
+    DIGESTS[tag] = pose_digest(out)
     del runs, out, solver
     # the dense executor's default sums already give the same poses on
     # every run (PERF.md §6), so it sums without the fixed-order scope
@@ -2471,7 +2575,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
     dense = DenseTreeSolver("mono", method="direct")
     first, _, wall = _counted(lambda: dense.run(maps))
     out, launched[tag], wall_held = _held_counted(
-        tag, lambda: dense.run(maps), k1_at_root=False)
+        tag, lambda: dense.run(maps), k1_at_root=False, dense=True)
     check(tag, out, mono_ids)
     same = np.array_equal(first.poses, out.poses)
     print(f"{tag}: two runs' poses equal {same}; walls {wall:.4f} s, in "
@@ -2486,8 +2590,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
     # (b) pin="zero"
     tag = "call forms mono direct pin zero"
     zero = DeviceTreeSolver("mono", method="direct", pin="zero")
-    out, launched[tag], wall = _held_counted(tag, lambda: zero.run(maps),
-                                             fixed=True)
+    out, launched[tag], wall = _held_counted(tag, lambda: zero.run(maps))
     check(tag, out, mono_ids)
     p = _poses_by_id(out)
     print(f"{tag}: wall {wall:.4f} s (in situ), max pose diff vs pin='sign' "
@@ -2535,6 +2638,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
     # on the CPU (ROADMAP queue 3 item 5), so it is held to 1e-4 and 5e-4;
     # with f64 information at every level (mixed_max_m=0) to the exact
     # solve's limits
+    # (the host executor's K3 calls run unheld here: (e) holds them)
     for tag, make, at_root, limits in (
             ("host stereo 512", lambda: TreeSolver("stereo"), True,
              (1e-6, 1e-5)),
@@ -2548,8 +2652,9 @@ def phase_call_forms(datasets, oracle512, add_ns):
         s = make()
         if s.device != card:
             raise AssertionError(f"{tag}: on {s.device}")
-        out, launched[tag], wall = _held_counted(tag, lambda: s.run(m512),
-                                                 at_root)
+        out, launched[tag], wall = _held_counted(
+            tag, lambda: s.run(m512), at_root, dense=not at_root,
+            hold_k3=False)
         print(f"{tag}: on {s.device}, wall {wall:.4f} s (in situ), kernel "
               f"launches {launched[tag]}", flush=True)
         vs_oracle(tag, out, *limits)
@@ -2559,14 +2664,15 @@ def phase_call_forms(datasets, oracle512, add_ns):
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text:
         lio.write_dataset(m512, text)
         (out, _), launched[tag], wall = _held_counted(
-            tag, lambda: pipeline.run(text, 512, "stereo", progress=False))
+            tag, lambda: pipeline.run(text, 512, "stereo", progress=False),
+            hold_k3=False)
     print(f"{tag}: pipeline.run(path, 512, 'stereo') wall {wall:.4f} s (in "
           f"situ), kernel launches {launched[tag]}", flush=True)
     vs_oracle(tag, out)
     del out
 
-    # (e) direct mono on the host executor, which sums in the fixed order
-    # now: TreeSolver and pipeline.run twice each on phase 11a's mono set
+    # (e) direct mono on the host executor, which sums in the fixed order:
+    # TreeSolver and pipeline.run twice each on phase 11a's mono set
     mono512, gtm, _ = gen.make_dataset(512, "mono", noise=0.005, seed=7,
                                        covis_radius=6.0, covis_max=6)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text:
@@ -2587,7 +2693,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
                               gt=gtm)
             if held:
                 out, launched[tag], wall2 = _held_counted(
-                    tag, run, fixed=True, add_ns=add_ns)
+                    tag, run, add_ns=add_ns)
             else:
                 out, launched[tag], wall2 = _counted(run)
             again = vs_oracle(f"{tag} run 1", out, datatype="mono", gt=gtm)
@@ -2617,10 +2723,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
         raise AssertionError(f"call forms merge_one_stereo: GPU vs CPU "
                              f"{diff:.3e}")
     for path, counts in launched.items():
-        _require_launched(path, counts, fixed=path in (
-            "call forms mono direct", "call forms mono direct pin zero",
-            "call forms host mono 512 direct",
-            "call forms pipeline.run mono 512"))
+        _require_launched(path, counts, dense="dense" in path)
     print(f"call forms: phase {time.perf_counter() - t_phase:.2f} s ((a) "
           f"{t_a - t_phase:.2f} s, (b) {t_b - t_a:.2f} s, (c) "
           f"{t_c - t_b:.2f} s, (d) {time.perf_counter() - t_c:.2f} s)",
@@ -2636,6 +2739,11 @@ BENCH_CASES = (
     ("bench dense stereo", {"BENCH_EXEC": "dense",
                             "BENCH_PROFILE_LEVELS": "0"}),
 )
+# the run of this process whose poses each case must repeat, bit for bit
+# (`DIGESTS`: the same solver call form on the same set)
+BENCH_SAME = {"bench stereo": "main stereo", "bench mono": "main mono",
+              "bench mono direct": "call forms mono direct",
+              "bench dense stereo": "dense stereo"}
 
 
 def phase_bench(smi, rates):
@@ -2647,9 +2755,12 @@ def phase_bench(smi, rates):
     1e-10, the logged ATE within 1e-6 of the oracle's (the dense
     executor's default refine, f32 information at its low levels, 1e-4,
     as phase 12 holds it), K1 and K2 in the timed run's logged launches
-    and K3 exactly on direct mono; the card's line (`smi`) on stderr. Each
-    value is printed beside phase 6/7's own timed rate (`rates`, by data
-    type), as a record. Returns the launches by path."""
+    and K3 on every case but the dense executor's, where it must not run;
+    the card's line (`smi`) on stderr; the logged SHA-256 of the warm and
+    the timed run's poses equal to each other and to this process's run
+    of the same solve (`BENCH_SAME`, `DIGESTS`). Each value is printed
+    beside phase 6/7's own timed rate (`rates`, by data type), as a
+    record. Returns the launches by path."""
     import re
     import torch
 
@@ -2683,6 +2794,9 @@ def phase_bench(smi, rates):
             raise AssertionError(f"{tag}: keys {sorted(rec)}, want "
                                  f"{sorted(keys)}: {rec}")
         ate = float(re.search(r"ATE (\d+\.\d{9}) over", p.stderr).group(1))
+        warm, timed_digest = re.search(
+            r"poses sha256 \(warm run\) (\w+) \(timed run\) (\w+)",
+            p.stderr).groups()
         launched = json.loads(re.search(
             r"kernel launches \(timed run\): (\{.*\})", p.stderr).group(1))
         timed = re.search(r"timed run: (.*)", p.stderr).group(1)
@@ -2706,10 +2820,95 @@ def phase_bench(smi, rates):
             raise AssertionError(f"{tag}: ATE {ate} off the oracle's")
         if "res_max" in keys and not rec["res_max"] <= 1e-10:
             raise AssertionError(f"{tag}: res_max {rec['res_max']} > 1e-10")
-        _require_launched(tag, launched, fixed=direct)
+        _require_launched(tag, launched, dense=not device_exec)
+        # the bench's warm and timed runs, and this process's run of the
+        # same solve (another process), give the same bits
+        mine = DIGESTS.get(BENCH_SAME[tag])
+        print(f"{tag}: poses sha256 warm run {warm[:16]}..., timed run "
+              f"{timed_digest[:16]}..., {BENCH_SAME[tag]} in this process "
+              f"{str(mine)[:16]}...", flush=True)
+        if warm != timed_digest or timed_digest != mine:
+            raise AssertionError(f"{tag}: the runs' poses differ (sha256 "
+                                 f"{warm}, {timed_digest}, {mine})")
         paths[tag] = launched
     print(f"bench: phase {time.perf_counter() - t_phase:.2f} s", flush=True)
     return paths
+
+
+# oracle ATE of the grid mono 2,048-map covis set, seed 7: the oracle
+# binary on the files `_archive/grid_mono_2048.py` writes (PERF.md)
+ORACLE_ATE_GRID_2048 = 2.572875460
+
+
+def phase_grid_mono():
+    """14. grid mono 2,048 (`phase_grid_mono`): the set of
+    `_archive/grid_mono_2048.py` (`synth.generate.make_dataset(2048,
+    "mono", noise=0.005, seed=7, pattern="grid", covis_radius=6.0,
+    covis_max=6)` written as text with the port's writer and read back
+    with `pipeline.load_local_maps`) through `DeviceTreeSolver("mono",
+    method=M)` (no device argument) three times for each of refine and
+    direct, the counts from 0 around each run: the three runs' pose ids,
+    poses and features `torch.equal`, and K1, K2 and K3 launched in each.
+    The data amplify rounding by orders of magnitude more than the loop
+    set (PERF.md §7), so no tolerance to the oracle or to the JAX package
+    holds here: the ATE (over the finite poses), res_max and the count of
+    non-finite poses are printed beside the oracle's ATE, as a record.
+    Returns the launches of each method's last run."""
+    import numpy as np
+    from synth import generate as gen
+    from linearsfm_tpu_torch import types
+    from linearsfm_tpu_torch.core import pipeline
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    from linearsfm_tpu_torch.io import localmap as lio
+    from linearsfm_tpu_torch.ops import kernels
+    from linearsfm_tpu_torch.utils.metrics import LevelMetrics
+
+    t_phase = time.perf_counter()
+    n = 2048
+    maps, gt, _ = gen.make_dataset(n, "mono", noise=0.005, seed=7,
+                                   pattern="grid", covis_radius=6.0,
+                                   covis_max=6)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text:
+        lio.write_dataset(maps, text)
+        maps = pipeline.load_local_maps(text, n, "mono")
+    print(f"grid mono: {n} maps made, written and read back in "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    launched = {}
+    for method in ("refine", "direct"):
+        tag = f"grid mono {method}"
+        solver = DeviceTreeSolver("mono", method=method)
+        first = None
+        for k in range(3):
+            metrics = LevelMetrics()
+            out, counts, wall = _counted(
+                lambda: solver.run(maps, metrics=metrics))
+            h = types.to_numpy(out)
+            del out
+            v = h.pose_ids >= 0
+            fin = np.isfinite(h.poses[v]).all(axis=1)
+            err = np.linalg.norm(h.poses[v][fin, :3]
+                                 - gt[h.pose_ids[v][fin], :3], axis=1)
+            ate = (float(np.sqrt(np.mean(np.square(err)))) if fin.any()
+                   else float("nan"))
+            res = [r.get("res_max", float("nan")) for r in metrics.records]
+            res_max = (max(res) if method == "refine" and res
+                       else float("nan"))
+            print(f"{tag} run {k}: wall {wall:.4f} s, {int(v.sum())} poses, "
+                  f"{int((~fin).sum())} non-finite, ATE over the finite "
+                  f"{ate:.9f} (oracle {ORACLE_ATE_GRID_2048:.9f}, record "
+                  f"only), res_max {res_max:.3e}"
+                  f"{' (the direct solve computes none)' * (method == 'direct')}"
+                  f", kernel launches {counts}", flush=True)
+            _require_launched(f"{tag} run {k}", counts)
+            if first is None:
+                first = h
+            else:
+                _repeats(f"{tag} runs 0 and {k}", first, h)
+        launched[tag] = counts
+        del first, solver
+    print(f"grid mono: phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return launched
 
 
 def main() -> int:
@@ -2750,7 +2949,7 @@ def main() -> int:
     paths, single, rates = {}, {}, {}
     for d, (maps, gt, tp) in datasets.items():
         paths[d], single[d], rates[d] = phase_main_path(d, maps, gt, tp,
-                                                        shapes)
+                                                        shapes, hold_k3=True)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text_dir:
         launched, cli_poses = phase_entry_points(datasets, text_dir)
         paths.update(launched)
@@ -2760,6 +2959,7 @@ def main() -> int:
     paths.update(launched)
     paths.update(phase_call_forms(datasets, oracle512, add_ns))
     paths.update(phase_bench(smi, rates))
+    paths.update(phase_grid_mono())
 
     def record(name, source, replaces, max_err, t, library, **extra):
         by_path = {d: c.get(name, 0) for d, c in paths.items()}

@@ -158,6 +158,13 @@ class DenseTreeSolver:
     tree) are recorded in the metrics as one fused pass sharing one wall,
     as the JAX package compiles them into one program; eager PyTorch runs
     every level alike.
+
+    Unlike the other two executors it does not enter the fixed-order
+    scope (`ops/segment.deterministic`), and runs no K3: its only
+    accumulating scatter (`_scatter`, `index_add_`) adds at most one value
+    to each row but the dropped dummy row, since the planner gives each
+    joint slot at most one source slot per lane, so its sums repeat
+    bit for bit in any order.
     """
 
     def __init__(self, datatype: str, method: str = "refine",

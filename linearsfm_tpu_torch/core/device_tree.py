@@ -24,7 +24,6 @@ the <=1,024-lane split, and AOT warm-up.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import time
@@ -115,7 +114,7 @@ class DeviceTreeSolver:
     or "direct" (f64 Cholesky). pin: the mono scale pin of every join,
     "sign" or "zero" (`JoinConfig.pin`). device (keyword-only): where the
     levels run, the card by default; `device="cpu"` runs the kernels'
-    plain versions, and a CUDA device with no CUDA raises. Direct mono
+    plain versions, and a CUDA device with no CUDA raises. Every level
     sums in a fixed order (`ops/segment.deterministic`).
     Iteration bands (method="refine"): joins with fewer than `top_min_m`
     joined poses run `refine_iters` PCG sweeps; larger ones up to
@@ -291,7 +290,9 @@ class DeviceTreeSolver:
 
     def _level(self, x: types.LocalMap, lp: plan_mod.LevelPlan):
         """One tree level over `lp.count` stacked lanes on the solver's
-        device, in its mode; returns what `_body` returns."""
+        device, in its mode; returns what `_body` returns (the fixed order
+        is `run`'s: a caller of this alone enters `segment.deterministic()`
+        itself)."""
         cfg = self._level_cfg(lp)
         mode = self._level_mode(lp, cfg)
         if mode == "dp":
@@ -391,15 +392,15 @@ class DeviceTreeSolver:
         resume: restart from its newest one, when its shape is the plan's
         (the plan is rebuilt from `maps`, so they must be the same maps),
         else warn and start over. time_levels: record each level's device
-        wall into the metrics records (`exec_wall`, seconds). Direct mono
-        runs under `segment.deterministic()`."""
-        # on an H100 the direct mono solve's atomic sums moved its poses by
-        # up to 1.1e-5 from run to run, and the JAX package gives the same
-        # bits on every run; the scope sums in list order through kernel
-        # K3 (`ops/segment`); stereo moved 2e-13 and stays outside it
-        # (PERF.md §6, ROADMAP queue 3 item 1 for what the fixed order costs)
-        fixed = self.datatype == "mono" and self.method == "direct"
-        with segment.deterministic() if fixed else contextlib.nullcontext():
+        wall into the metrics records (`exec_wall`, seconds). Runs under
+        `segment.deterministic()`: two runs give the same bits."""
+        # the JAX package gives the same bits on every run, where the
+        # card's atomic sums moved direct mono's poses by up to 1.1e-5 and
+        # grid mono's by O(1) from run to run; the scope sums in list order
+        # through kernel K3 (`ops/segment`), on every method and data type
+        # (PERF.md §6 for what the fixed order costs; ROADMAP queue 3 for
+        # grid mono, whose data amplify rounding)
+        with segment.deterministic():
             return self._run(maps, metrics, ckpt_dir, resume, time_levels)
 
     def _run(self, maps, metrics, ckpt_dir, resume, time_levels):

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .. import types
-from ..ops import schur, solve
+from ..ops import schur, segment, solve
 from ..ops.rotations import wrap_angle_diff, wrap_angle_pi
 from ..ops.segment import put1, seg_sum, take1
 from ..parallel import shard_solve
@@ -104,9 +104,12 @@ def _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo: int, cfg: JoinConfig):
     return Vinv, S, E
 
 
+@segment.planned()
 def join_stereo(end: types.LocalMap, cur: types.LocalMap,
                 cfg: JoinConfig = JoinConfig()):
-    """Fuse the lanes of two stacked stereo maps sharing the same gauge."""
+    """Fuse the lanes of two stacked stereo maps sharing the same gauge.
+    K3's plans are kept for the join (`segment.planned`): the solve sums
+    over the same index lists in every sweep."""
     P = end.poses.shape[0]
     M1, N1, N2 = end.M, end.N, cur.N
     Mo, No = M1 + cur.M, N1 + N2
@@ -194,6 +197,7 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
     return (out, res.to(xp.dtype)) if cfg.with_res else out
 
 
+@segment.planned()
 def join_mono(end: types.LocalMap, cur: types.LocalMap,
               cfg: JoinConfig = JoinConfig()):
     """Fuse the lanes of two stacked mono maps sharing the same (ref, scap,
@@ -201,7 +205,8 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
 
     cur's ref and scap slots are identified with end's and left as dead
     slots (id -1, zero information, gauge-masked); every block touching the
-    zero-information reference pose is zeroed.
+    zero-information reference pose is zeroed. K3's plans are kept for the
+    join, as in `join_stereo`.
     """
     P = end.poses.shape[0]
     M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N

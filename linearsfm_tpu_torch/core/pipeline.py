@@ -55,9 +55,9 @@ def run(path: str, num: int, datatype: str,
     Logged at INFO: the read time and the parser used, the solve wall, the
     solver's host phases, the solve's kernel launches, its peak device
     memory (on a GPU) and the write time. The device and host executors
-    sum direct mono in a fixed order (`ops/segment.deterministic`, kernel
-    K3 on the card); the dense executor's sums give the same poses on
-    every run without it (ROADMAP queue 3 item 1).
+    sum in a fixed order (`ops/segment.deterministic`, kernel K3 on the
+    card); the dense executor's sums give the same poses on every run
+    without it (`DenseTreeSolver`'s docstring).
     """
     device = solver_device(device, "pipeline.run")
     if solver is None:

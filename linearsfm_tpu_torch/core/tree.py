@@ -24,7 +24,6 @@ shards the feature axis of the single-pair joins of at least
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import time
@@ -128,7 +127,12 @@ class TreeSolver:
     def merge_pair(self, g: types.LocalMap, m: types.LocalMap
                    ) -> types.LocalMap:
         """Transform the accumulated host-form map `g` into `m`'s gauge when
-        it differs, and fuse; returns the fused map in host form."""
+        it differs, and fuse, in the fixed order of `run`; returns the fused
+        map in host form."""
+        with segment.deterministic():
+            return self._merge_pair(g, m)
+
+    def _merge_pair(self, g, m):
         gd, md = self._one_lane(g), self._one_lane(m)
         if int(g.gauge.ref) != int(m.gauge.ref) or (
                 self.datatype == "mono"
@@ -151,7 +155,12 @@ class TreeSolver:
 
     def regauge_to_final(self, g: types.LocalMap) -> types.LocalMap:
         """Re-express the host-form map `g` in the first map's gauge if
-        needed (:1997-2030), else return it as it is."""
+        needed (:1997-2030), else return it as it is; in the fixed order
+        of `run` (the multi-process tree calls it alone)."""
+        with segment.deterministic():
+            return self._regauge_to_final(g)
+
+    def _regauge_to_final(self, g):
         if int(g.gauge.ref) > int(g.gauge.fref):
             lane = self._one_lane(g)
             lg = lane.gauge
@@ -163,7 +172,8 @@ class TreeSolver:
     # -- level-batched execution ---------------------------------------------
     def _run_level_batched(self, gs: list, ms: list) -> list:
         """All pairwise joins of one level as one lane-batched pass; returns
-        the merged maps in host form."""
+        the merged maps in host form (the fixed order is `run`'s: a caller
+        of this alone enters `segment.deterministic()` itself)."""
         t0 = time.perf_counter()
         both = gs + ms
         caps = [max(getattr(lm, k) for lm in both)
@@ -206,10 +216,9 @@ class TreeSolver:
 
         ckpt_dir: save the maps after every level (`level<L>_map<i>.npz`);
         resume: start from the newest complete level there instead of
-        `maps`. Direct mono runs under `segment.deterministic()`, as in
-        `DeviceTreeSolver.run`: two runs give the same bits."""
-        fixed = self.datatype == "mono" and self.method == "direct"
-        with segment.deterministic() if fixed else contextlib.nullcontext():
+        `maps`. Runs under `segment.deterministic()`, as
+        `DeviceTreeSolver.run` does: two runs give the same bits."""
+        with segment.deterministic():
             return self._run(maps, ckpt_dir, resume, metrics)
 
     def _run(self, maps, ckpt_dir, resume, metrics):
@@ -232,13 +241,13 @@ class TreeSolver:
                     [maps[2 * i] for i in range(npair)],
                     [maps[2 * i + 1] for i in range(npair)])
             else:
-                merged = [self.merge_pair(maps[2 * i], maps[2 * i + 1])
+                merged = [self._merge_pair(maps[2 * i], maps[2 * i + 1])
                           for i in range(npair)]
             out = []
             for i in range(nxt):
                 g = merged[i] if i < npair else maps[2 * i]  # odd carry (:1946-1948)
                 if (i + 1) % 2 == 0:
-                    g = self.regauge_to_final(g)
+                    g = self._regauge_to_final(g)
                 out.append(compact_mod.compact(g, self.bucket, self.u_bucket))
             maps = out
             count = nxt
@@ -251,5 +260,5 @@ class TreeSolver:
             if self.progress:
                 log.info("Level %d done (%d maps, %.2fs)", level, count,
                          time.perf_counter() - t0)
-        g = self.regauge_to_final(maps[0])
+        g = self._regauge_to_final(maps[0])
         return compact_mod.compact(g, self.bucket, self.u_bucket)

@@ -24,6 +24,7 @@ import torch
 
 from .. import types
 from . import gauge as G
+from . import segment
 from .segment import put1, seg_sum, take, take1
 
 
@@ -32,6 +33,7 @@ def _congr(d_i, blk, d_j):
     return d_i.transpose(-1, -2) @ blk @ d_j
 
 
+@segment.planned()
 def congruence_emit(U, Uij, W, Wpf, V, Dp, Df, Cp, Cf, r_slot,
                     C2p=None, C2f=None, s_slot=None):
     """Apply the congruence and return the transformed and appended blocks.
@@ -41,7 +43,9 @@ def congruence_emit(U, Uij, W, Wpf, V, Dp, Df, Cp, Cf, r_slot,
     (folded at row r). Cp [P,M,6,6], Cf [P,N,3,6]: couplings to the old-ref
     column (zero at row r). r_slot [P]: the coupling column's slot.
     C2p/C2f/s_slot (mono): the couplings to the old scale-pose column (zero
-    at row s) and its slot; they add newU_s, newW_s, ss and rs.
+    at row s) and its slot; they add newU_s, newW_s, ss and rs. Mono's
+    two emissions sum over the same four lists: K3 sorts each once
+    (`segment.planned`).
     """
     M, N = Dp.shape[1], Df.shape[1]
     ui, uj = Uij[..., 0], Uij[..., 1]

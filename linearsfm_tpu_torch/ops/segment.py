@@ -14,48 +14,84 @@ Order of the sums. XLA adds a segment's values in a fixed order, so the JAX
 package gives the same bits on every run. ``index_add_`` adds them
 sequentially, in list order, on the CPU, but through atomics on a GPU, whose
 order changes from run to run: float results there differ by rounding from
-run to run. Inside `deterministic()` every floating-point sum of a CUDA
-tensor here (`seg_sum`, `index_add`) runs kernel K3 instead
-(`kernels.seg_sum_fixed`): each segment's values added in list order, with
-no atomics, bit-equal to the CPU's ``index_add_``. Each sum sorts its
-index list once (`kernels.seg_plan`); keeping the plans of lists summed
-twice saved nothing measurable on the direct mono paths (PERF.md §6).
-Integer sums are exact in any order and keep ``index_add_``; so does the
-CPU, whose ``index_add_`` is already in order.
+run to run. Inside `deterministic()`, which the device and host executors
+enter for every run, every floating-point sum of a CUDA tensor here
+(`seg_sum`, `index_add`) runs kernel K3 instead (`kernels.seg_sum_fixed`):
+each segment's values added in list order, with no atomics, bit-equal to the
+CPU's ``index_add_``. K3 sums over an index list sorted once
+(`kernels.seg_plan`); inside `planned()`, which every join enters, each
+distinct list is sorted once and its plan serves every later sum over it
+(the PCG's sweeps sum over the same four lists). Integer sums are exact in
+any order and keep ``index_add_``; so does the CPU, whose ``index_add_`` is
+already in order.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
 
 
 # depth of the open `deterministic()` scopes
 _fixed = 0
+# K3's plans of the open `planned()` scope, by index list, or None
+_plans: dict | None = None
 
 
 @contextlib.contextmanager
 def deterministic():
     """The fixed-order scope: inside it every floating-point `seg_sum` and
     `index_add` of a CUDA tensor runs K3, so two runs give the same bits.
-    PyTorch's global deterministic mode is left as the caller set it.
-    cuBLAS wants a fixed workspace for repeatable products
-    (CUBLAS_WORKSPACE_CONFIG=:4096:8, set for the enclosed work unless the
-    caller set it). Scopes nest; the outermost one's exit restores the
-    environment."""
+    PyTorch's global deterministic mode is left as the caller set it, and
+    so is CUBLAS_WORKSPACE_CONFIG: PyTorch reads it once per process, at
+    its first cuBLAS call, and cuBLAS may choose other algorithms for
+    another workspace, so a value set only inside the scope would give a
+    process whose first product ran here other bits than one whose first
+    product ran before (mono 2,048 on an H100, PERF.md §6). Products on
+    one stream repeat with any fixed workspace. Scopes nest."""
     global _fixed
-    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    if env is None:
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     _fixed += 1
     try:
         yield
     finally:
         _fixed -= 1
-        if env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+@contextlib.contextmanager
+def planned():
+    """Keep K3's plans while active (also a decorator): the first sum over
+    an index list sorts it (`kernels.seg_plan`), and every later sum over
+    the same list reuses that plan. A list is the same when its storage,
+    offset, shape, strides, version counter and segment count are; the
+    scope holds a reference to every list it planned, so a freed or
+    rewritten tensor never meets a stale plan. Nested scopes share the
+    outermost one's plans, which its exit drops."""
+    global _plans
+    if _plans is not None:
+        yield
+        return
+    _plans = {}
+    try:
+        yield
+    finally:
+        _plans = None
+
+
+def _plan(idx: torch.Tensor, num: int):
+    """K3's plan of idx [P, K] into num segments: the open `planned()`
+    scope's, else a new one."""
+    from . import kernels
+    if _plans is None or idx.is_inference():
+        return kernels.seg_plan(idx, num)
+    key = (idx.device, idx.dtype, idx.untyped_storage().data_ptr(),
+           idx.storage_offset(), tuple(idx.shape), idx.stride(),
+           idx._version, num)
+    hit = _plans.get(key)
+    if hit is None:
+        # the list itself is kept so that its storage outlives the key
+        hit = _plans[key] = (idx, kernels.seg_plan(idx, num))
+    return hit[1]
 
 
 def _k3(x: torch.Tensor) -> bool:
@@ -94,8 +130,7 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
     atomics there."""
     if _k3(vals):
         from . import kernels
-        return kernels.seg_sum_fixed(vals.contiguous(),
-                                     kernels.seg_plan(idx, num))
+        return kernels.seg_sum_fixed(vals.contiguous(), _plan(idx, num))
     P = idx.shape[0]
     tail = vals.shape[2:]
     idx = torch.where((idx >= 0) & (idx < num), idx, num)
@@ -114,8 +149,7 @@ def index_add(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     if _k3(out):
         from . import kernels
         kernels.seg_sum_fixed(vals.contiguous()[None],
-                              kernels.seg_plan(idx.reshape(1, -1),
-                                               out.shape[0]),
+                              _plan(idx.reshape(1, -1), out.shape[0]),
                               out=out[None], alpha=alpha)
         return out
     return out.index_add_(0, idx, vals, alpha=alpha)

@@ -33,8 +33,10 @@ The last line of stdout is one JSON object with bench.py's keys: metric,
 value, unit, vs_baseline and, on the device executor, res_max, mfu and
 achieved_f32_tflops; nothing else goes to stdout. stderr has the log:
 the card's line (nvidia-smi name and power limit), the host phases of
-each run, per-level residuals and walls, the ATE to 9 digits, the peak
-device memory and the timed run's kernel launches
+each run, per-level residuals and walls, the ATE to 9 digits, the
+SHA-256 of the warm and the timed run's pose ids and poses
+(`common.pose_digest`: equal when the two runs gave the same bits), the
+peak device memory and the timed run's kernel launches
 (`kernel launches (timed run): {...}`, JSON). Runs on the card unless
 --cpu is given (no CUDA and no --cpu: exit 1).
 """
@@ -168,7 +170,7 @@ def main(argv=None, env=None) -> int:
     from synth import generate as gen
     from linearsfm_tpu_torch import types
     from linearsfm_tpu_torch.ops import kernels
-    from linearsfm_tpu_torch.tools.common import sync
+    from linearsfm_tpu_torch.tools.common import pose_digest, sync
     from linearsfm_tpu_torch.utils.metrics import LevelMetrics
 
     n = k["maps"]
@@ -183,7 +185,7 @@ def main(argv=None, env=None) -> int:
     t0 = time.perf_counter()
     log(f"warmup run (kernels built at first use, exec={k['executor']}, "
         f"method={k['method']}, {device})")
-    solver.run(maps)
+    warm = pose_digest(solver.run(maps))
     sync(device)
     log(f"warmup done in {time.perf_counter() - t0:.1f}s "
         f"{solver._last_timing}")
@@ -215,6 +217,7 @@ def main(argv=None, env=None) -> int:
            for s, i in enumerate(h.pose_ids) if i >= 0]
     ate = float(np.sqrt(np.mean(np.square(err))))
     log(f"ATE {ate:.9f} over {len(err)} poses")
+    log(f"poses sha256 (warm run) {warm} (timed run) {pose_digest(final)}")
 
     value = (n - 1) / wall
     rec = {

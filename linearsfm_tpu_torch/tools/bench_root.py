@@ -50,6 +50,16 @@ def root_parts(solver, maps) -> dict:
     """Time the root join's pieces (printing a line each); returns {"ms":
     {piece: ms}, "caps_in", "caps_out", "joined": the joined root map,
     "S", "E": its assembled system}."""
+    from linearsfm_tpu_torch.ops import segment
+
+    if solver.datatype != "stereo":
+        raise ValueError("bench_root is stereo only")
+    # the solver's fixed order (`DeviceTreeSolver.run`)
+    with segment.deterministic():
+        return _root_parts(solver, maps)
+
+
+def _root_parts(solver, maps) -> dict:
     import torch
     from linearsfm_tpu_torch import types
     from linearsfm_tpu_torch.core import dcompact
@@ -57,8 +67,6 @@ def root_parts(solver, maps) -> dict:
     from linearsfm_tpu_torch.ops import congruence, solve
     from linearsfm_tpu_torch.tools.common import best_ms
 
-    if solver.datatype != "stereo":
-        raise ValueError("bench_root is stereo only")
     tp, x = solver.prepare(maps)
     for lp in tp.levels[:-1]:
         x, _ = solver._level(x, lp)

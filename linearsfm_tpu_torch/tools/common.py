@@ -55,3 +55,15 @@ def best_ms(fn, device):
         sync(device)
         walls.append(time.perf_counter() - t)
     return min(walls) * 1e3, out
+
+
+def pose_digest(lm) -> str:
+    """SHA-256 of a solved map's pose ids and poses (host form, as
+    `types.host_fields` gives them): equal digests, equal bits."""
+    import hashlib
+    import numpy as np
+    from linearsfm_tpu_torch import types
+    h = types.host_fields(lm)
+    return hashlib.sha256(
+        np.ascontiguousarray(h.pose_ids).tobytes()
+        + np.ascontiguousarray(h.poses).tobytes()).hexdigest()

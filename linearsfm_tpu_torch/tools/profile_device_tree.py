@@ -29,6 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def profile(solver, maps) -> None:
     """Print the cold, warm and warm2 runs and the per-level walls."""
+    from linearsfm_tpu_torch.ops import segment
     from linearsfm_tpu_torch.tools.common import sync
 
     n = len(maps)
@@ -44,7 +45,8 @@ def profile(solver, maps) -> None:
     sync(solver.device)
     for li, lp in enumerate(tp.levels, start=1):
         t1 = time.perf_counter()
-        x, _ = solver._level(x, lp)
+        with segment.deterministic():   # the solver's order, as in `run`
+            x, _ = solver._level(x, lp)
         sync(solver.device)
         print(f"L{li:2d} count={lp.count:4d} in={lp.caps_in} "
               f"out={lp.caps_out} wall={time.perf_counter() - t1:8.4f}s",

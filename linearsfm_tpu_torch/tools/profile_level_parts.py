@@ -67,6 +67,14 @@ def level_parts(solver, maps, levels=None) -> dict:
     `solver.run` builds it, and, as host numpy, the poses [lanes, M, 6]
     each program's last call returned. The tree runs once, up to the
     largest level asked for."""
+    from linearsfm_tpu_torch.ops import segment
+
+    # the solver's fixed order (`DeviceTreeSolver.run`)
+    with segment.deterministic():
+        return _level_parts(solver, maps, levels)
+
+
+def _level_parts(solver, maps, levels):
     from linearsfm_tpu_torch.tools.common import best_ms
 
     tp, x = solver.prepare(maps)

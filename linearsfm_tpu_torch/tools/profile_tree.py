@@ -28,8 +28,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def run_once(solver, lms, t0: float, label: str):
-    """One host-executor tree over `lms`, a line per level; returns the
-    final map (host form)."""
+    """One host-executor tree over `lms`, a line per level, in the fixed
+    order of `TreeSolver.run`; returns the final map (host form)."""
+    from linearsfm_tpu_torch.ops import segment
+    with segment.deterministic():
+        return _run_once(solver, lms, t0, label)
+
+
+def _run_once(solver, lms, t0, label):
     from linearsfm_tpu_torch.core import compact as compact_mod
     maps = [compact_mod.compact(lm, solver.bucket, solver.u_bucket)
             for lm in lms]
