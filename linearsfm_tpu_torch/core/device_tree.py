@@ -32,16 +32,21 @@ import numpy as np
 import torch
 
 from .. import types
-from ..ops import congruence, segment
+from ..ops import congruence, kernels, segment
 from ..parallel import level as plevel
 from ..parallel.mesh import canonical, solver_device
 from ..utils import checkpoint
+from ..utils.metrics import recording, self_seconds, span
 from . import compact as compact_mod
 from . import dcompact
 from . import join as join_mod
 from . import plan as plan_mod
 
 log = logging.getLogger("linearsfm_tpu_torch")
+
+# spans whose self seconds, summed over a solve, `_last_timing` holds
+SELF_TIMED = ("plan_tree", "transform", "join", "sync", "regauge_compact",
+              "final")
 
 
 def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
@@ -81,8 +86,10 @@ def _grow_stacked(stacked: types.LocalMap, M: int, N: int, KU: int,
 
 class LevelTimer:
     """Per-level device walls: CUDA events on a GPU (read after the final
-    synchronise, so timing does not stall the pipeline), the host clock on
-    the CPU, where every operation is synchronous."""
+    synchronise, so timing does not stall the pipeline), the spans' host
+    clock (`utils/metrics`) on the CPU, where every operation is
+    synchronous. The dense executor marks each level boundary; the device
+    executor marks each `level` span's start and end."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -94,7 +101,7 @@ class LevelTimer:
             ev.record()
             self.marks.append(ev)
         else:
-            self.marks.append(time.perf_counter())
+            self.marks.append(time.perf_counter_ns() * 1e-9)
 
     def walls(self) -> list[float]:
         """Seconds between consecutive marks."""
@@ -172,6 +179,7 @@ class DeviceTreeSolver:
         self.progress = progress
         self.join_count = 0
         self.last_residuals: dict = {}
+        self.last_spans: list[dict] = []
         self._last_timing: dict = {}
 
     def _cfg(self, joined_m: int) -> join_mod.JoinConfig:
@@ -201,14 +209,22 @@ class DeviceTreeSolver:
     def _regauge_compact(self, lm: types.LocalMap, caps_out, info_dtype):
         """Re-gauge to the final frame + compact, on the lanes the exact plan
         flags (the id comparison ref > fref is decided on the host)."""
-        g = lm.gauge
-        if self.datatype == "stereo":
-            t = congruence.transform_map_stereo(lm, g.fref,
-                                                info_dtype=info_dtype)
-        else:
-            t = congruence.transform_map_mono(lm, g.fref, g.fscap, g.ffix,
-                                              info_dtype=info_dtype)
-        return dcompact.compact_device(t, *caps_out)[0]
+        with span("regauge_compact"):
+            g = lm.gauge
+            if self.datatype == "stereo":
+                t = congruence.transform_map_stereo(lm, g.fref,
+                                                    info_dtype=info_dtype)
+            else:
+                t = congruence.transform_map_mono(lm, g.fref, g.fscap,
+                                                  g.ffix,
+                                                  info_dtype=info_dtype)
+            return dcompact.compact_device(t, *caps_out)[0]
+
+    @staticmethod
+    def _compact(lm: types.LocalMap, caps_out) -> types.LocalMap:
+        """Compact without re-gauge (`dcompact.compact_device`)."""
+        with span("regauge_compact"):
+            return dcompact.compact_device(lm, *caps_out)[0]
 
     def _level_cfg(self, lp: plan_mod.LevelPlan) -> join_mod.JoinConfig:
         # exact plans carry the level's true largest join; the bucketed
@@ -243,8 +259,8 @@ class DeviceTreeSolver:
 
         parts = []
         if idx_nr:
-            parts.append(dcompact.compact_device(types.lanes(merged, idx_nr),
-                                                 *caps_out)[0])
+            parts.append(self._compact(types.lanes(merged, idx_nr),
+                                       caps_out))
         if idx_rg:
             parts.append(self._regauge_compact(types.lanes(merged, idx_rg),
                                                caps_out, cfg.info_dtype))
@@ -336,8 +352,7 @@ class DeviceTreeSolver:
             carry = dataclasses.replace(carry, U=carry.U.to(idt),
                                         W=carry.W.to(idt), V=carry.V.to(idt))
             c = (self._regauge_compact(carry, caps_out, idt)
-                 if lp.regauge[npair]
-                 else dcompact.compact_device(carry, *caps_out)[0])
+                 if lp.regauge[npair] else self._compact(carry, caps_out))
             out = types.cat([out, c])
             res = torch.cat([res, res.new_zeros(1)])
         return out, res
@@ -350,26 +365,27 @@ class DeviceTreeSolver:
         merged, res = self._merge(types.lanes(x, slice(0, 1)),
                                   types.lanes(x, slice(1, 2)), cfg)
         out = (self._regauge_compact(merged, lp.caps_out, cfg.info_dtype)
-               if lp.regauge[0]
-               else dcompact.compact_device(merged, *lp.caps_out)[0])
+               if lp.regauge[0] else self._compact(merged, lp.caps_out))
         return out, res
 
     def _final(self, x: types.LocalMap, caps, need: bool) -> types.LocalMap:
-        root = types.lanes(x, slice(0, 1))
-        out = (self._regauge_compact(root, caps, torch.float64) if need
-               else dcompact.compact_device(root, *caps)[0])
-        dt = out.poses.dtype
-        out = dataclasses.replace(out, U=out.U.to(dt), W=out.W.to(dt),
-                                  V=out.V.to(dt))
-        return types.lanes(out, 0)
+        with span("final"):
+            root = types.lanes(x, slice(0, 1))
+            out = (self._regauge_compact(root, caps, torch.float64) if need
+                   else self._compact(root, caps))
+            dt = out.poses.dtype
+            out = dataclasses.replace(out, U=out.U.to(dt), W=out.W.to(dt),
+                                      V=out.V.to(dt))
+            return types.lanes(out, 0)
 
     # -- full tree -----------------------------------------------------------
     def _plan(self, stacked: types.LocalMap) -> plan_mod.TreePlan:
         """The exact tree plan of the compacted host stack."""
-        return plan_mod.plan_tree_exact(
-            plan_mod.sym_of_stacked(stacked), self.datatype, self.bucket,
-            self.u_bucket, map_offset=self.plan_offset,
-            final_regauge=self.final_regauge)
+        with span("plan_tree"):
+            return plan_mod.plan_tree_exact(
+                plan_mod.sym_of_stacked(stacked), self.datatype, self.bucket,
+                self.u_bucket, map_offset=self.plan_offset,
+                final_regauge=self.final_regauge)
 
     def prepare(self, maps: list):
         """(tree plan, level 1's input): what `run` builds before its first
@@ -393,7 +409,21 @@ class DeviceTreeSolver:
         (the plan is rebuilt from `maps`, so they must be the same maps),
         else warn and start over. time_levels: record each level's device
         wall into the metrics records (`exec_wall`, seconds). Runs under
-        `segment.deterministic()`: two runs give the same bits."""
+        `segment.deterministic()`: two runs give the same bits.
+
+        Each run records its spans (`utils/metrics`): `ingest_plan` (with
+        `plan_tree`), `upload`, and `levels`, which holds one `level` per
+        plan level (attributes: level, count, join_m, mode, device_wall
+        [s], memory_allocated at its end [bytes, on a card]) with its
+        `transform`, `join` (attributes: the PCG's sweeps and escalations)
+        and `regauge_compact` spans, then `final` and the closing `sync`;
+        a `sync` spans each blocking read of the PCG. Afterwards
+        `last_spans` holds them, and `_last_timing` (a new flat dict of
+        numbers) the host phases compact, plan, upload, levels (to the
+        synchronise) and get [s], the self seconds of the spans in
+        SELF_TIMED, and the solve's counts: pcg_sweeps, pcg_escalations,
+        syncs, k1/k2/k3_launches (`kernels.launches`), k3_plans and
+        k3_plan_hits (`segment._plan`)."""
         # the JAX package gives the same bits on every run, where the
         # card's atomic sums moved direct mono's poses by up to 1.1e-5 and
         # grid mono's by O(1) from run to run; the scope sums in list order
@@ -404,71 +434,114 @@ class DeviceTreeSolver:
             return self._run(maps, metrics, ckpt_dir, resume, time_levels)
 
     def _run(self, maps, metrics, ckpt_dir, resume, time_levels):
-        t0 = time.perf_counter()
-        stacked = compact_mod.compact_stack(maps, self.bucket, self.u_bucket)
-        t1 = time.perf_counter()
-        tp = self._plan(stacked)
-        if not tp:
-            return types.lanes(types.to_torch(stacked, self.device), 0)
-        plans = tp.levels
-        stacked = _grow_stacked(stacked, *plans[0].caps_in)
-        start_level = 0
-        if resume and ckpt_dir:
-            got = checkpoint.latest_stacked(ckpt_dir)
-            if got is not None:
-                lvl, st = got
-                want = ((plans[lvl].count, plans[lvl].caps_in[0])
-                        if lvl < len(plans) else
-                        ((plans[-1].count + 1) // 2, plans[-1].caps_out[0]))
-                if st.pose_ids.shape == want:
-                    stacked, start_level = st, lvl
-                    log.info("resuming at level %d from %s", lvl, ckpt_dir)
-                else:
-                    log.warning("checkpoint shape %s mismatches plan %s; "
-                                "restarting", st.pose_ids.shape, want)
-        t2 = time.perf_counter()
-        x = types.to_torch(stacked, self.device)
-        t3 = time.perf_counter()
-        timer = LevelTimer(self.device)
-        res_per_level = {}
-        for li, lp in enumerate(plans[start_level:], start=start_level):
-            if time_levels:
-                timer.mark()
-            x, res = self._level(x, lp)
-            res_per_level[li + 1] = res
-            if ckpt_dir:
-                checkpoint.save_stacked(ckpt_dir, li + 1, x)
-            self.join_count += lp.count // 2
-            if metrics is not None:
-                metrics.record(li + 1, (lp.count + 1) // 2, lp.count // 2,
-                               M=lp.caps_out[0], N=lp.caps_out[1],
-                               join_m=lp.join_m,
-                               wall=round(time.perf_counter() - t0, 4))
-            if self.progress:
-                log.info("Level %d dispatched (%d maps)", li + 1,
-                         (lp.count + 1) // 2)
-        if time_levels:
-            timer.mark()
-        y = self._final(x, tp.root_caps, tp.root_regauge)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t4 = time.perf_counter()
+        launched = dict(kernels.launches)
+        with recording() as rec:
+            t0 = time.perf_counter()
+            with span("ingest_plan"):
+                stacked = compact_mod.compact_stack(maps, self.bucket,
+                                                    self.u_bucket)
+                t1 = time.perf_counter()
+                tp = self._plan(stacked)
+                start_level = 0
+                if tp:
+                    stacked = _grow_stacked(stacked, *tp.levels[0].caps_in)
+                    if resume and ckpt_dir:
+                        stacked, start_level = self._resumed(tp, stacked,
+                                                             ckpt_dir)
+            t2 = time.perf_counter()
+            with span("upload"):
+                x = types.to_torch(stacked, self.device)
+            t3 = time.perf_counter()
+            timer = LevelTimer(self.device)
+            level_spans, res_per_level = [], {}
+            with span("levels"):
+                for li, lp in enumerate(tp.levels[start_level:] if tp else (),
+                                        start=start_level):
+                    with span("level", level=li + 1, count=lp.count,
+                              join_m=lp.join_m,
+                              mode=self._level_mode(lp, self._level_cfg(lp))
+                              ) as sp:
+                        timer.mark()
+                        x, res = self._level(x, lp)
+                        timer.mark()
+                        # memory_allocated's value without its flattening
+                        # of every statistic (about 100 us a call)
+                        sp["attrs"]["memory_allocated"] = (
+                            torch.cuda.memory_stats_as_nested_dict(
+                                self.device)["allocated_bytes"]["all"][
+                                "current"] if timer.cuda else None)
+                    level_spans.append(sp)
+                    res_per_level[li + 1] = res
+                    if ckpt_dir:
+                        checkpoint.save_stacked(ckpt_dir, li + 1, x)
+                    self.join_count += lp.count // 2
+                    if metrics is not None:
+                        metrics.record(li + 1, (lp.count + 1) // 2,
+                                       lp.count // 2, M=lp.caps_out[0],
+                                       N=lp.caps_out[1], join_m=lp.join_m,
+                                       wall=round(time.perf_counter() - t0, 4))
+                    if self.progress:
+                        log.info("Level %d dispatched (%d maps)", li + 1,
+                                 (lp.count + 1) // 2)
+                y = (self._final(x, tp.root_caps, tp.root_regauge) if tp
+                     else types.lanes(x, 0))
+                with span("sync"):
+                    if timer.cuda:
+                        torch.cuda.synchronize(self.device)
+            t4 = time.perf_counter()
+        # the level spans' device walls, read after the synchronise
+        for sp, wall in zip(level_spans, timer.walls()[::2]):
+            sp["attrs"]["device_wall"] = wall
         # per-level PCG residuals, read once after the tree
         self.last_residuals = {lv: r.cpu().numpy()
                                for lv, r in res_per_level.items()}
         if metrics is not None:
             by_level = {r["level"]: r for r in metrics.records}
-            walls = timer.walls() if time_levels else []
-            for k, (lv, r) in enumerate(self.last_residuals.items()):
+            for lv, r in self.last_residuals.items():
                 if lv not in by_level:
                     continue
                 if r.size:
                     # max, not nanmax: a NaN lane must show in res_max
                     with np.errstate(invalid="ignore"):
                         by_level[lv]["res_max"] = float(np.max(r))
-                if walls:
-                    by_level[lv]["exec_wall"] = walls[k]
-        self._last_timing = dict(compact=t1 - t0, plan=t2 - t1,
-                                 upload=t3 - t2, levels=t4 - t3,
-                                 get=time.perf_counter() - t4)
+            if time_levels:
+                for sp in level_spans:
+                    by_level[sp["attrs"]["level"]]["exec_wall"] = (
+                        sp["attrs"]["device_wall"])
+        self.last_spans = rec.spans
+        own = self_seconds(rec.spans)
+        n = rec.counts
+        self._last_timing = dict(
+            compact=t1 - t0, plan=t2 - t1, upload=t3 - t2, levels=t4 - t3,
+            **{k: own.get(k, 0.0) for k in SELF_TIMED},
+            pcg_sweeps=n.get("pcg_sweeps", 0),
+            pcg_escalations=n.get("pcg_escalations", 0),
+            syncs=sum(1 for sp in rec.spans if sp["name"] == "sync"),
+            k1_launches=kernels.launches["blockcoo_to_dense"]
+            - launched["blockcoo_to_dense"],
+            k2_launches=kernels.launches["inv3x3_sym"]
+            - launched["inv3x3_sym"],
+            k3_launches=kernels.launches["seg_sum_fixed"]
+            - launched["seg_sum_fixed"],
+            k3_plans=n.get("k3_plans", 0),
+            k3_plan_hits=n.get("k3_plan_hits", 0),
+            get=time.perf_counter() - t4)
         return y
+
+    def _resumed(self, tp: plan_mod.TreePlan, stacked, ckpt_dir: str):
+        """(stack, first level to run): the newest checkpoint in ckpt_dir
+        when its shape is the plan's, else (stacked, 0) with a warning."""
+        got = checkpoint.latest_stacked(ckpt_dir)
+        if got is None:
+            return stacked, 0
+        lvl, st = got
+        plans = tp.levels
+        want = ((plans[lvl].count, plans[lvl].caps_in[0])
+                if lvl < len(plans) else
+                ((plans[-1].count + 1) // 2, plans[-1].caps_out[0]))
+        if st.pose_ids.shape == want:
+            log.info("resuming at level %d from %s", lvl, ckpt_dir)
+            return st, lvl
+        log.warning("checkpoint shape %s mismatches plan %s; restarting",
+                    st.pose_ids.shape, want)
+        return stacked, 0

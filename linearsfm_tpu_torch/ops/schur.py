@@ -21,6 +21,7 @@ import os
 
 import torch
 
+from ..utils import metrics
 from . import kernels, solve
 from .segment import index_add, lane_ids, lane_where, seg_sum, take
 
@@ -431,7 +432,10 @@ def pcg(matvec, precond, xp0, xf0, eP, eF, freeP, *, iters: int,
     M^{-1} r. iters sweeps, or with exit_tol > 0 at most iters, each lane
     stopping (frozen while others go on) once its squared residual is <=
     (exit_tol ||e||)^2; then escalate_iters more sweeps on the lanes whose
-    relative residual is > escalate_tol. Returns (x_p, x_f, res_rel [P])."""
+    relative residual is > escalate_tol. Returns (x_p, x_f, res_rel [P]).
+    Counts each sweep (`pcg_sweeps`) and each escalation
+    (`pcg_escalations`), and spans each read of a flag from the device
+    (`sync`), in the open solve's recorder (`utils/metrics`)."""
     dt, dev, P = eP.dtype, eP.device, eP.shape[0]
     zero = eP.new_zeros(())
 
@@ -449,6 +453,7 @@ def pcg(matvec, precond, xp0, xf0, eP, eF, freeP, *, iters: int,
     enorm = torch.clamp_min(torch.sqrt(dot(eP_free, eF, eP_free, eF)), tiny)
 
     def body(c):
+        metrics.count("pcg_sweeps")
         xp, xf, rP, rF, pP, pF, rz, _res2, i = c
         qP, qF = matvec(pP, pF)
         pq = dot(pP, pF, qP, qF)
@@ -472,7 +477,9 @@ def pcg(matvec, precond, xp0, xf0, eP, eF, freeP, *, iters: int,
         tol2 = (exit_tol * enorm) ** 2
         while True:
             active = (carry[8] < iters) & (carry[7] > tol2)
-            if not bool(active.any()):
+            with metrics.span("sync"):
+                go = bool(active.any())
+            if not go:
                 break
             carry = select(active, body(carry), carry)
     else:
@@ -487,7 +494,10 @@ def pcg(matvec, precond, xp0, xf0, eP, eF, freeP, *, iters: int,
         # (more sweeps cannot repair a failed factor); the NaN stays in the
         # returned residual, which the tree executor reports unmasked.
         esc = res(carry) > escalate_tol
-        if bool(esc.any()):
+        with metrics.span("sync"):
+            go = bool(esc.any())
+        if go:
+            metrics.count("pcg_escalations")
             more = carry
             for _ in range(escalate_iters):
                 more = body(more)

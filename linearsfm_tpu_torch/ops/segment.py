@@ -32,6 +32,7 @@ import contextlib
 
 import torch
 
+from ..utils import metrics
 
 # depth of the open `deterministic()` scopes
 _fixed = 0
@@ -80,17 +81,22 @@ def planned():
 
 def _plan(idx: torch.Tensor, num: int):
     """K3's plan of idx [P, K] into num segments: the open `planned()`
-    scope's, else a new one."""
+    scope's, else a new one (counted in the open solve's recorder,
+    `utils/metrics`: `k3_plans` built, `k3_plan_hits` reused)."""
     from . import kernels
     if _plans is None or idx.is_inference():
+        metrics.count("k3_plans")
         return kernels.seg_plan(idx, num)
     key = (idx.device, idx.dtype, idx.untyped_storage().data_ptr(),
            idx.storage_offset(), tuple(idx.shape), idx.stride(),
            idx._version, num)
     hit = _plans.get(key)
     if hit is None:
+        metrics.count("k3_plans")
         # the list itself is kept so that its storage outlives the key
         hit = _plans[key] = (idx, kernels.seg_plan(idx, num))
+    else:
+        metrics.count("k3_plan_hits")
     return hit[1]
 
 

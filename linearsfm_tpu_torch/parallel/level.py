@@ -16,22 +16,29 @@ import torch
 from .. import types
 from ..core import join as join_mod
 from ..ops import congruence
+from ..utils import metrics
 from .mesh import Mesh
 
 
 def merge_one_stereo(g: types.LocalMap, m: types.LocalMap,
                      cfg: join_mod.JoinConfig):
-    """Transform each lane of g into m's gauge and fuse the pair."""
-    end = congruence.transform_map_stereo(g, m.gauge.ref,
-                                          info_dtype=cfg.info_dtype)
-    return join_mod.join_stereo(end, m, cfg)
+    """Transform each lane of g into m's gauge and fuse the pair (spans
+    `transform` and `join` of the open solve, `utils/metrics`)."""
+    with metrics.span("transform"):
+        end = congruence.transform_map_stereo(g, m.gauge.ref,
+                                              info_dtype=cfg.info_dtype)
+    with metrics.span("join"):
+        return join_mod.join_stereo(end, m, cfg)
 
 
 def merge_one_mono(g: types.LocalMap, m: types.LocalMap,
                    cfg: join_mod.JoinConfig):
-    end = congruence.transform_map_mono(g, m.gauge.ref, m.gauge.scap,
-                                        m.gauge.fix, info_dtype=cfg.info_dtype)
-    return join_mod.join_mono(end, m, cfg)
+    with metrics.span("transform"):
+        end = congruence.transform_map_mono(g, m.gauge.ref, m.gauge.scap,
+                                            m.gauge.fix,
+                                            info_dtype=cfg.info_dtype)
+    with metrics.span("join"):
+        return join_mod.join_mono(end, m, cfg)
 
 
 def stack_maps(maps: list[types.LocalMap]) -> types.LocalMap:

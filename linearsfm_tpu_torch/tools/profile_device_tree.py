@@ -7,11 +7,13 @@ Counterpart of `tools/profile_device_tree.py` (defaults 512 maps, stereo,
 refine; the data is `synth.generate.make_dataset(NUM, TYPE, noise=0.005,
 seed=7)`). Prints a cold, a warm and a second warm run of
 `DeviceTreeSolver(TYPE, method=METHOD)` (wall, maps joined per second and
-the solver's host phases `_last_timing`: compact / plan / upload / levels
-/ get), then the wall of each level run alone, one after the other on the
-exact plan the solver makes (`DeviceTreeSolver.prepare`, then `_level`,
-synchronised after each). Runs on the card unless --cpu is given (no CUDA
-and no --cpu: exit 1).
+the solver's `_last_timing`: the host phases compact / plan / upload /
+levels / get, its spans' self seconds and its counts), then one row per
+level of the last run, from its spans (`solver.last_spans`): the host
+self seconds of its transform / join / sync / regauge_compact spans, its
+device wall, the bytes allocated at its end (on a card) and its PCG
+sweeps. Runs on the card unless --cpu is given (no CUDA and no --cpu:
+exit 1).
 
 `profile(solver, maps)` prints the same for other callers' maps.
 """
@@ -26,11 +28,13 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
+PARTS = ("transform", "join", "sync", "regauge_compact")
+
 
 def profile(solver, maps) -> None:
-    """Print the cold, warm and warm2 runs and the per-level walls."""
-    from linearsfm_tpu_torch.ops import segment
+    """Print the cold, warm and warm2 runs and the last one's levels."""
     from linearsfm_tpu_torch.tools.common import sync
+    from linearsfm_tpu_torch.utils.metrics import self_seconds, subtree
 
     n = len(maps)
     for label in ("cold", "warm", "warm2"):
@@ -41,16 +45,19 @@ def profile(solver, maps) -> None:
         print(f"{label}: {w:8.4f}s ({(n - 1) / w:8.1f} maps/s) timing="
               f"{ {k: round(v, 4) for k, v in solver._last_timing.items()} }",
               flush=True)
-    tp, x = solver.prepare(maps)
-    sync(solver.device)
-    for li, lp in enumerate(tp.levels, start=1):
-        t1 = time.perf_counter()
-        with segment.deterministic():   # the solver's order, as in `run`
-            x, _ = solver._level(x, lp)
-        sync(solver.device)
-        print(f"L{li:2d} count={lp.count:4d} in={lp.caps_in} "
-              f"out={lp.caps_out} wall={time.perf_counter() - t1:8.4f}s",
-              flush=True)
+    spans = solver.last_spans
+    for i, sp in enumerate(spans):
+        if sp["name"] != "level":
+            continue
+        a, under = sp["attrs"], subtree(spans, i)
+        own = self_seconds(spans, under)
+        mem = a["memory_allocated"]
+        print(f"L{a['level']:2d} count={a['count']:4d} mode={a['mode']} "
+              + " ".join(f"{k}={own.get(k, 0.0) * 1e3:8.3f}ms" for k in PARTS)
+              + f" device={a['device_wall'] * 1e3:8.3f}ms live="
+              + ("-" if mem is None else f"{mem / 2**20:.1f}MiB")
+              + " sweeps=" + str(sum(spans[j]["attrs"].get("pcg_sweeps", 0)
+                                     for j in under)), flush=True)
 
 
 def main(argv=None) -> int:
