@@ -106,6 +106,17 @@ PARITY = {
         "utils.debug.check_map",
         "a JAX debugging flag; a failed lane of the port turns NaN, and "
         "`check_map` (the CLI's --check) reports it; " + _DO_NOT_PORT),
+    # -- the planner's id-space shadows ----------------------------------------
+    "core.plan.SymNode": (
+        "core.plan.SymLevel",
+        "one node's shadow in Python sets; the port keeps a whole tree "
+        "level's nodes in one `SymLevel` of sorted key arrays, so that "
+        "`plan_tree_exact` runs each level as one batch"),
+    "core.plan.sym_of": (
+        "core.plan.sym_of_stacked",
+        "one map's shadow; the port builds every map's at once from the "
+        "stack (`sym_of_stacked`), and `parallel.multihost` stacks its "
+        "blocks' maps for it"),
     # -- parameters the port adds ---------------------------------------------
     "core.dense_tree.DenseTreeSolver.run": (
         "core.dense_tree.DenseTreeSolver.run(time_levels)",

@@ -42,10 +42,17 @@ def merge_one_mono(g: types.LocalMap, m: types.LocalMap,
 
 
 def stack_maps(maps: list[types.LocalMap]) -> types.LocalMap:
-    """Stack same-capacity host-form maps along a new leading lane axis
-    (numpy, so a level moves to the device in one copy per field)."""
+    """Stack host-form maps along a new leading lane axis (numpy, so a level
+    moves to the device in one copy per field), each at the widest map's
+    capacities: ids pad with -1, everything else with 0, as `pad_to`."""
     def stacked(obj_of, f):
-        return np.stack([np.asarray(getattr(obj_of(m), f)) for m in maps])
+        arrays = [np.asarray(getattr(obj_of(m), f)) for m in maps]
+        shape = tuple(max(d) for d in zip(*(a.shape for a in arrays)))
+        out = np.full((len(arrays),) + shape, -1 if f.endswith("_ids") else 0,
+                      arrays[0].dtype)
+        for b, a in enumerate(arrays):
+            out[(b,) + tuple(slice(0, d) for d in a.shape)] = a
+        return out
 
     gauge = types.Gauge(*(stacked(lambda m: m.gauge, f)
                           for f in types.GAUGE_FIELDS))

@@ -113,32 +113,20 @@ def common_root_caps(maps: list, datatype: str, n_hosts: int,
     the gather exchanges equal shapes without a handshake."""
     n = len(maps)
     L, block, owners = plan_chunks(n, n_hosts)
-    syms = [plan_mod.sym_of(types.host_fields(m)) for m in maps]
+    stacked = plevel.stack_maps([types.host_fields(m) for m in maps])
     caps = [1, 1, 1, 1]
     for lo, hi in _block_spans(n, block, 0, owners[-1][1]):
-        cur = syms[lo:hi]
-        off = lo
-        used = 0
-        while len(cur) > 1:
-            assert off % 2 == 0, f"block offset {lo} unaligned"
-            off //= 2
-            used += 1
-            npair = len(cur) // 2
-            nxt = []
-            for i in range((len(cur) + 1) // 2):
-                nd = (plan_mod._sym_join(cur[2 * i], cur[2 * i + 1], datatype)
-                      if i < npair else cur[2 * i])
-                nd, _ = plan_mod._sym_finish(nd, off + i, datatype)
-                nxt.append(nd)
-            cur = nxt
-        root = cur[0]
-        if any(p % 2 == 1
-               for p in _carry_regauge_positions(lo, used, L)) \
-                and root.ref > root.fref:
-            root = plan_mod._sym_transform(root, root.fref, root.fscap,
-                                           datatype)
-        rc = plan_mod._caps([root.counts()], bucket, u_bucket)
-        caps = [max(a, b) for a, b in zip(caps, rc)]
+        syms = plan_mod.sym_of_stacked(
+            types.map_fields(stacked, lambda a: a[lo:hi]))
+        levels, root = plan_mod._simulate(syms, datatype, bucket, u_bucket,
+                                          map_offset=lo)
+        carried = _carry_regauge_positions(lo, len(levels), L)
+        if any(p % 2 == 1 for p in carried):
+            # the transform applies only where ref > fref, as
+            # `regauge_to_final` (local_phase)
+            root = plan_mod._regauge(root, root.ref > root.fref, datatype)
+        caps = [max(a, b) for a, b in zip(caps,
+                                          root.caps(bucket, u_bucket))]
     return tuple(caps)
 
 
