@@ -46,7 +46,7 @@ log = logging.getLogger("linearsfm_tpu_torch")
 
 # spans whose self seconds, summed over a solve, `_last_timing` holds
 SELF_TIMED = ("plan_tree", "transform", "join", "sync", "regauge_compact",
-              "final")
+              "final", "mono_gauge")
 
 
 def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
@@ -417,7 +417,8 @@ class DeviceTreeSolver:
         [s], memory_allocated at its end [bytes, on a card]) with its
         `transform`, `join` (attributes: the PCG's sweeps and escalations)
         and `regauge_compact` spans, then `final` and the closing `sync`;
-        a `sync` spans each blocking read of the PCG. Afterwards
+        a `sync` spans each blocking read of the PCG, and a mono join's
+        `mono_gauge` what the mono gauge adds before its solve. Afterwards
         `last_spans` holds them, and `_last_timing` (a new flat dict of
         numbers) the host phases compact, plan, upload, levels (to the
         synchronise) and get [s], the self seconds of the spans in

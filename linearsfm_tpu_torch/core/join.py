@@ -32,6 +32,7 @@ from ..ops import schur, segment, solve
 from ..ops.rotations import wrap_angle_diff, wrap_angle_pi
 from ..ops.segment import put1, seg_sum, take1
 from ..parallel import shard_solve
+from ..utils import metrics
 
 
 class JoinConfig(NamedTuple):
@@ -206,7 +207,10 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     cur's ref and scap slots are identified with end's and left as dead
     slots (id -1, zero information, gauge-masked); every block touching the
     zero-information reference pose is zeroed. K3's plans are kept for the
-    join, as in `join_stereo`.
+    join, as in `join_stereo`. What the mono gauge adds before the solve
+    (the wraparound, the drop, the pose identification and the gauge
+    masks) runs in the span `mono_gauge` of the open solve
+    (`utils/metrics`).
     """
     P = end.poses.shape[0]
     M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N
@@ -216,34 +220,48 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     pos1, pos2 = end.ref_slot(), end.scap_slot()
     cref, cscap = cur.ref_slot(), cur.scap_slot()
 
-    # ---- angle wraparound on the scale-pose blocks -------------------------
-    def with_angles(poses, slot, ang):
-        return put1(poses, slot, torch.cat([take1(poses, slot)[:, 0:3], ang],
-                                           dim=-1))
-    end_ang = wrap_angle_pi(take1(end.poses, pos2)[:, 3:6])
-    end_poses = with_angles(end.poses, pos2, end_ang)
-    cur_ang = wrap_angle_diff(wrap_angle_pi(take1(cur.poses, cscap)[:, 3:6]),
-                              end_ang)
-    cur_poses = with_angles(cur.poses, cscap, cur_ang)
+    with metrics.span("mono_gauge"):
+        # ---- angle wraparound on the scale-pose blocks ---------------------
+        def with_angles(poses, slot, ang):
+            return put1(poses, slot,
+                        torch.cat([take1(poses, slot)[:, 0:3], ang], dim=-1))
+        end_ang = wrap_angle_pi(take1(end.poses, pos2)[:, 3:6])
+        end_poses = with_angles(end.poses, pos2, end_ang)
+        cur_ang = wrap_angle_diff(
+            wrap_angle_pi(take1(cur.poses, cscap)[:, 3:6]), end_ang)
+        cur_poses = with_angles(cur.poses, cscap, cur_ang)
 
-    # ---- drop zero-information blocks touching the reference pose ---------
-    idt = types.as_dtype(cfg.info_dtype) or end.U.dtype
+        # ---- drop zero-information blocks touching the reference pose -----
+        idt = types.as_dtype(cfg.info_dtype) or end.U.dtype
 
-    def drop_ref(lm, ref):
-        keep_u = (lm.Uij[..., 0] != ref[:, None]) & (lm.Uij[..., 1] != ref[:, None])
-        keep_w = lm.Wpf[..., 0] != ref[:, None]
-        return (torch.where(keep_u[..., None, None], lm.U.to(idt), 0.0),
-                torch.where(keep_w[..., None, None], lm.W.to(idt), 0.0))
-    endU, endW = drop_ref(end, pos1)
-    curU, curW = drop_ref(cur, cref)
-    endV, curV = end.V.to(idt), cur.V.to(idt)
+        def drop_ref(lm, ref):
+            keep_u = ((lm.Uij[..., 0] != ref[:, None])
+                      & (lm.Uij[..., 1] != ref[:, None]))
+            keep_w = lm.Wpf[..., 0] != ref[:, None]
+            return (torch.where(keep_u[..., None, None], lm.U.to(idt), 0.0),
+                    torch.where(keep_w[..., None, None], lm.W.to(idt), 0.0))
+        endU, endW = drop_ref(end, pos1)
+        curU, curW = drop_ref(cur, cref)
+        endV, curV = end.V.to(idt), cur.V.to(idt)
 
-    # ---- pose identification: cur's ref/scap -> end's slots ---------------
-    ar2 = torch.arange(M2, device=dev)
-    is_ref, is_scap = ar2 == cref[:, None], ar2 == cscap[:, None]
-    slotmap2 = torch.where(is_ref, pos1[:, None], (ar2 + M1).expand(P, M2))
-    slotmap2 = torch.where(is_scap, pos2[:, None], slotmap2)
-    dead2 = is_ref | is_scap
+        # ---- pose identification: cur's ref/scap -> end's slots -----------
+        ar2 = torch.arange(M2, device=dev)
+        is_ref, is_scap = ar2 == cref[:, None], ar2 == cscap[:, None]
+        slotmap2 = torch.where(is_ref, pos1[:, None],
+                               (ar2 + M1).expand(P, M2))
+        slotmap2 = torch.where(is_scap, pos2[:, None], slotmap2)
+        dead2 = is_ref | is_scap
+
+        # ---- gauge masks of the solve -------------------------------------
+        pose_valid = torch.cat([end.pose_mask(), cur.pose_mask() & ~dead2],
+                               dim=1)
+        fixed = ~pose_valid.repeat_interleave(6, dim=1)
+        coord = torch.arange(6 * Mo, device=dev)
+        fixed |= ((coord >= 6 * pos1[:, None])
+                  & (coord < 6 * pos1[:, None] + 6))
+        fixc = 6 * pos2 + end.gauge.fix
+        fixed |= coord == fixc[:, None]               # the pinned scale coord
+        sign = end.gauge.sign.to(idt)
 
     # ---- feature matching --------------------------------------------------
     joint2, matched = _match_features(end.feat_ids, end.feat_mask(),
@@ -284,13 +302,6 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     eF[:, :N1] += eF1
 
     # ---- Schur + gauge-masked solve ----------------------------------------
-    pose_valid = torch.cat([end.pose_mask(), cur.pose_mask() & ~dead2], dim=1)
-    fixed = ~pose_valid.repeat_interleave(6, dim=1)
-    coord = torch.arange(6 * Mo, device=dev)
-    fixed |= (coord >= 6 * pos1[:, None]) & (coord < 6 * pos1[:, None] + 6)
-    fixc = 6 * pos2 + end.gauge.fix
-    fixed |= coord == fixc[:, None]                   # the pinned scale coord
-    sign = end.gauge.sign.to(idt)
     nan = torch.full((P,), torch.nan, dtype=eP.dtype, device=dev)
 
     known = (cfg.method in ("direct", "refine")

@@ -10,10 +10,10 @@ seed=7)`). Prints a cold, a warm and a second warm run of
 the solver's `_last_timing`: the host phases compact / plan / upload /
 levels / get, its spans' self seconds and its counts), then one row per
 level of the last run, from its spans (`solver.last_spans`): the host
-self seconds of its transform / join / sync / regauge_compact spans, its
-device wall, the bytes allocated at its end (on a card) and its PCG
-sweeps. Runs on the card unless --cpu is given (no CUDA and no --cpu:
-exit 1).
+self seconds of its transform / join / mono_gauge / sync /
+regauge_compact spans, its device wall, the bytes allocated at its end
+(on a card) and its PCG sweeps. Runs on the card unless --cpu is given
+(no CUDA and no --cpu: exit 1).
 
 `profile(solver, maps)` prints the same for other callers' maps.
 """
@@ -28,7 +28,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-PARTS = ("transform", "join", "sync", "regauge_compact")
+PARTS = ("transform", "join", "mono_gauge", "sync", "regauge_compact")
 
 
 def profile(solver, maps) -> None:

@@ -326,15 +326,28 @@ def test_compact_stack_and_plan_match_reference_mono():
     assert (pt.root_regauge, pt.root_caps) == (pj.root_regauge, pj.root_caps)
 
 
-@pytest.mark.parametrize("method", ["refine", "direct"])
+MONO_TOP = dict(method="refine", top_min_m=8, top_iters=16)
+MONO_TREES = {
+    "refine": dict(method="refine"),
+    "direct": dict(method="direct"),
+    # the top band from 8 joined poses (levels 3-4 of 4): the PCG with the
+    # scale pin, its exit and escalation reads, with and without the early
+    # exit
+    "refine top band early exit": MONO_TOP,
+    "refine top band fixed trips": dict(MONO_TOP, pcg_exit_tol=0.0),
+}
+
+
+@pytest.mark.parametrize("method", list(MONO_TREES))
 def test_device_tree_mono_matches_reference(method):
     """11 mono maps (seed 5; odd carry at three levels, re-gauge lanes):
     the same slots in the same order, poses and features to 1e-9."""
     n = 11
+    kw = MONO_TREES[method]
     maps, _, _ = gen.make_dataset(n, "mono", noise=0.01, seed=5)
-    a = JaxTree("mono", method=method).run([m.to_local_map() for m in maps])
+    a = JaxTree("mono", **kw).run([m.to_local_map() for m in maps])
     metrics = LevelMetrics()
-    solver = TorchTree("mono", method=method, device=CPU)
+    solver = TorchTree("mono", device=CPU, **kw)
     b = types.to_numpy(solver.run(maps, metrics=metrics, time_levels=True))
     np.testing.assert_array_equal(b.pose_ids, np.asarray(a.pose_ids))
     np.testing.assert_array_equal(b.feat_ids, np.asarray(a.feat_ids))
@@ -344,8 +357,17 @@ def test_device_tree_mono_matches_reference(method):
     assert sorted(int(i) for i in b.pose_ids if i >= 0) == list(range(n + 2))
     assert solver.join_count == n - 1
     assert [r["level"] for r in metrics.records] == [1, 2, 3, 4]
-    if method == "refine":
+    if kw["method"] == "refine":
         assert max(r["res_max"] for r in metrics.records) < 1e-10
+    if "top_min_m" in kw:        # the band's joins, and only they, read
+        top = [lp.join_m >= kw["top_min_m"]
+               for lp in solver.prepare(maps)[0].levels]
+        assert top == [False, False, True, True]
+        spans = solver.last_spans
+        joins = [i for i, sp in enumerate(spans) if sp["name"] == "join"]
+        reads = [sum(sp["name"] == "sync" and sp["parent"] == i
+                     for sp in spans) for i in joins]
+        assert [r > 0 for r in reads] == top
 
 
 @pytest.mark.parametrize("method", ["direct", "refine"])

@@ -29,13 +29,17 @@ PARENTS = {"ingest_plan": {None}, "plan_tree": {"ingest_plan"},
            "upload": {None}, "levels": {None}, "level": {"levels"},
            "transform": {"level"}, "join": {"level"},
            "sync": {"join", "levels"}, "regauge_compact": {"level", "final"},
-           "final": {"levels"}}
+           "final": {"levels"}, "mono_gauge": {"join"}}
+# spans that only a mono join opens
+MONO_ONLY = {"mono_gauge"}
 # stereo refine below the top band (fixed trips), stereo refine with the
 # top band's early exit and escalation test from 16 joined poses, mono
-# direct (no PCG)
+# direct (no PCG), mono refine with the top band from 16 joined poses (the
+# PCG with the scale pin)
 CASES = {"stereo_refine": ("stereo", dict(method="refine")),
          "stereo_top": ("stereo", dict(method="refine", top_min_m=16)),
-         "mono_direct": ("mono", dict(method="direct"))}
+         "mono_direct": ("mono", dict(method="direct")),
+         "mono_top": ("mono", dict(method="refine", top_min_m=16))}
 
 
 def _maps(datatype, n=24):
@@ -151,6 +155,30 @@ def test_pcg_sweeps_follow_the_exit_tests(solved):
     assert s._last_timing["syncs"] > 1 + top
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mono_gauge_span(solved, case):
+    """A mono join opens one `mono_gauge` span, inside it and before its
+    solve's first blocking read, whose self seconds `_last_timing` sums;
+    a stereo join opens none, and `_last_timing` holds 0 for it."""
+    s, _, _ = solved[case]
+    spans = s.last_spans
+    joins = [i for i, sp in enumerate(spans) if sp["name"] == "join"]
+    gauges = [i for i, sp in enumerate(spans) if sp["name"] == "mono_gauge"]
+    if CASES[case][0] == "stereo":
+        assert gauges == [] and s._last_timing["mono_gauge"] == 0.0
+        return
+    assert [spans[i]["parent"] for i in gauges] == joins
+    for i in gauges:
+        assert spans[i]["attrs"] == {}
+        kids = _children(spans, spans[i]["parent"])
+        assert kids[0] is spans[i]
+    own = metrics.self_seconds(spans)
+    assert s._last_timing["mono_gauge"] == own["mono_gauge"] > 0
+    # the join's self time leaves the gauge's out
+    whole = sum(spans[i]["end"] - spans[i]["start"] for i in joins) * 1e-9
+    assert own["join"] + own["mono_gauge"] <= whole + 1e-9
+
+
 def test_k3_plan_counts(monkeypatch):
     """With the K3 route forced on the CPU, every plan `segment._plan`
     builds or reuses is counted, hits and misses apart."""
@@ -251,7 +279,8 @@ def test_pipeline_trace_holds_the_program_spans(tmp_path):
     by_name = {}
     for e in ranges:
         by_name.setdefault(e["name"], []).append(e)
-    assert set(PARENTS) <= set(by_name)
+    assert set(PARENTS) - MONO_ONLY <= set(by_name)
+    assert not MONO_ONLY & set(by_name)
 
     def inside(child, parent):
         return (parent["ts"] <= child["ts"] and child["ts"] + child["dur"]
