@@ -69,17 +69,20 @@ Phases, each printing its lines; any failure exits non-zero:
    with its plan before phase 3) through `DeviceTreeSolver("stereo",
    method="refine")`, as `bench.py` builds it (no device argument: the
    card by default), one warm run, with every K3 call and plan held
-   against the plain version in situ (`_K3InSitu`), and one timed run.
+   against the plain version in situ (`_K3InSitu`) and every K4 call
+   (`_K4InSitu`: the refine joins' float32 Schur complement from the W
+   block list, `torch.equal` on S and E), and one timed run.
    Fails unless the root lies on cuda:0, every pose id 1..2,048 is there
    and finite, the ATE is within
    1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10,
-   K1, K2 and K3 launched and the two runs' pose ids, poses and features
-   are `torch.equal`. It also prints the `utils/flops` model's f32
+   K1, K2, K3 and K4 launched and the two runs' pose ids, poses and
+   features are `torch.equal`. It also prints the `utils/flops` model's f32
    rate of the timed run and its share of the H100's 67 TFLOP/s f32 peak (a
    model figure: the per-block constants are not calibrated on the GPU);
 7. the mono main path: the same set in mono (pose 0 is an explicit block:
    ids 0..2,049) through `DeviceTreeSolver("mono", ...)`, checked the same
-   way against the oracle's 0.014352172;
+   way against the oracle's 0.014352172; its root K4 launch (mono
+   refine) is timed alone as 11b's;
 8. the entry points: both 2,048-map sets written as localmap_<i>.txt with
    the port's writer; `python3 -m linearsfm_tpu_torch.cli ... --check` as
    a subprocess with the default flags (device executor, `--method
@@ -139,7 +142,14 @@ Phases, each printing its lines; any failure exits non-zero:
    must run, every pose id be there and finite, the ATE be within 1e-6 of
    that run's oracle ATE and the pose files within 1e-5; (b) the stereo
    3,499-map covis set (seed 7, noise 0.005, covis 6 / 6) through phase
-   6's checks against `ate_3499_covis.json`'s oracle ATE; (c) the
+   6's checks against `ate_3499_covis.json`'s oracle ATE, every K1, K2 and
+   K4 call of its warm run held in situ, and its root K4 launch timed
+   alone with CUDA events (`_K4InSitu.time_root`: a fresh copy of A and
+   eP before each launch) beside its byte bound (W, Y and eF read once,
+   the touched S blocks read and written once, over 3.35 TB/s), the f32
+   flop bound of its nonzero block products (216 each, over 67 TFLOP/s),
+   the plain version and the calls it replaced (K1's W and Y stripes and
+   `torch.baddbmm`, `schur.schur_stripes`); (c) the
    profiling tools on phases 6-7's sets: `profile_level_parts.level_parts`
    at every level of both (T / TJ / full ms), `profile_device_tree.profile`
    and `bench_root.root_parts` on stereo, then `microbench` at its defaults
@@ -207,7 +217,8 @@ which sum in the fixed order, and on no path of the dense executor
 kernel record (per kernel: launches, max error, kernel, plain, bound and
 library times and what the library yardstick is; K1 at the root stripe,
 K2 fused at the stereo root in float32, K3 at the direct mono root in
-float64, with its chain floor); the last line is {"ok": true, "device":
+float64, with its chain floor, K4 at the stereo 3,499 root); the last
+line is {"ok": true, "device":
 {...}}.
 """
 
@@ -251,6 +262,8 @@ def _loop_ms(fn, reps):
 # `segment.deterministic()`, the dense executor's sums repeat without it
 PATH_KERNELS = ("blockcoo_to_dense", "inv3x3_sym")
 K3 = "seg_sum_fixed"
+# K4 runs in every refine join's float32 assembly
+K4 = "schur_pairs"
 
 
 def _require_launched(tag, counts, dense=False):
@@ -1210,6 +1223,133 @@ class _K3InSitu:
             raise AssertionError(f"{tag}: no K3 call or plan held in situ")
 
 
+class _K4InSitu:
+    """While active, every K4 call (`kernels.schur_pairs`, which the f32
+    branch of `schur._assemble_schur_dense` calls) is held against its plain
+    version on copies of its own inputs, run on the card, `torch.equal` on
+    S and E. Counts the calls and those on one lane (`root`: a tree's root
+    join), and keeps copies of the inputs of the last call on one lane for
+    `time_root`."""
+
+    def __enter__(self):
+        from linearsfm_tpu_torch.ops import kernels
+        self.calls, self.root, self.kept = 0, 0, None
+        self._saved = kernels.schur_pairs
+        k4 = self._saved
+
+        def held(S, E, W, Y, eF, plan):
+            import torch
+            S0, E0 = S.clone(), E.clone()
+            got = k4(S, E, W, Y, eF, plan)
+            want = kernels.schur_pairs_ref(S0.clone(), E0.clone(), W, Y, eF,
+                                           plan)
+            torch.cuda.synchronize()
+            if not (torch.equal(S, want[0]) and torch.equal(E, want[1])):
+                raise AssertionError(
+                    f"K4 in situ {list(S.shape)}: kernel != plain, max err "
+                    f"{max(_max_err(S, want[0]), _max_err(E, want[1]))}")
+            self.calls += 1
+            if S.shape[0] == 1:
+                self.root += 1
+                self.kept = (S0, E0, W.clone(), Y.clone(), eF.clone(), plan)
+            return got
+        kernels.schur_pairs = held
+        return self
+
+    def __exit__(self, *exc):
+        from linearsfm_tpu_torch.ops import kernels
+        kernels.schur_pairs = self._saved
+        return False
+
+    def report(self, tag):
+        """One line of what was held; fails unless calls were held at the
+        root."""
+        print(f"{tag}: every K4 call held against the plain version in situ "
+              f"(torch.equal, S and E): {self.calls} calls, {self.root} on "
+              f"one lane ok", flush=True)
+        if not self.root:
+            raise AssertionError(f"{tag}: no K4 call held at the root")
+
+    def time_root(self, tag, reps=5):
+        """The kept root launch timed alone (CUDA events, A and eP copied
+        in before each launch, outside the events; median of `reps` after
+        one warm launch), beside its bounds, the plain version and the calls
+        it replaced (`schur.schur_stripes`: K1's W and Y stripes and
+        `torch.baddbmm`). Returns the kernel record's times."""
+        import statistics
+        import torch
+        from linearsfm_tpu_torch.ops import kernels, schur
+        from linearsfm_tpu_torch.utils import flops
+        S0, E0, W, Y, eF, plan = self.kept
+        P, M, N = W.shape[0], plan.M, plan.N
+        live, products, touched = _k4_work(plan)
+        nbytes = live * 72 * 2 + P * N * 12 + touched * 144 * 2
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = products * 216 / flops.PEAK_F32 * 1e3
+
+        def timed(fn, n):
+            S, E = torch.empty_like(S0), torch.empty_like(E0)
+            ts = []
+            for _ in range(n + 1):
+                S.copy_(S0)
+                E.copy_(E0)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(S, E)
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+            return statistics.median(ts[1:])
+        ms = timed(lambda S, E: kernels.schur_pairs(S, E, W, Y, eF, plan),
+                   reps)
+        plain_ms = timed(lambda S, E: kernels.schur_pairs_ref(
+            S, E, W, Y, eF, plan), 2)
+        lib_ms = timed(lambda S, E: schur.schur_stripes(S, E, plan, W, Y, eF,
+                                                        M), 2)
+        bound = max(bytes_ms, flop_ms)
+        by = "bytes" if bytes_ms >= flop_ms else "flops"
+        print(f"{tag}: K4 at the root (P, M, N) ({P}, {M}, {N}): {live} live "
+              f"W entries, {products} block products, {touched} touched S "
+              f"blocks ({touched / (P * M * M):.1%} of S); kernel "
+              f"{ms:.4f} ms vs bound {bound:.4f} ms ({by}; bytes "
+              f"{bytes_ms:.4f}, flops {flop_ms:.4f}) = {bound / ms:.1%}; "
+              f"plain version {plain_ms:.3f} ms; K1 W/Y stripes + "
+              f"torch.baddbmm (the calls it replaced) {lib_ms:.3f} ms",
+              flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms, bytes_ms=bytes_ms, flop_ms=flop_ms,
+                    products=products, touched_blocks=touched)
+
+
+def _k4_work(plan):
+    """(live W entries, block products, touched S blocks) of one K4 launch,
+    from its plan: each live entry (p, f) meets every live entry of feature
+    f, and the products land on the distinct (lane, p, q)."""
+    import torch
+    dev = plan.perm.device
+    M, N = plan.M, plan.N
+    rptr = plan.row_ptr.long()
+    live = int(rptr[-1])
+    r = torch.repeat_interleave(torch.arange(rptr.numel() - 1, device=dev),
+                                rptr[1:] - rptr[:-1])
+    f = (r // M) * N + plan.scol[:live].long()
+    by_f = torch.argsort(f, stable=True)
+    cptr = torch.searchsorted(f[by_f], torch.arange(
+        (rptr.numel() - 1) // M * N + 1, device=dev))
+    c0 = cptr[f]
+    cnt = cptr[f + 1] - c0
+    src = torch.repeat_interleave(cnt)
+    i = torch.arange(src.numel(), device=dev)
+    other = by_f[c0[src] + i - (torch.cumsum(cnt, 0) - cnt)[src]]
+    key = r[src] * M + r[other] % M
+    return live, int(src.numel()), int(torch.unique(key).numel())
+
+
+# K4's root launch timed by `_K4InSitu.time_root`, by run tag
+K4_TIMES = {}
+
+
 def _k2_shapes(datasets):
     """The fused K2's (P, N, K) at level 1 and at the root of each path's
     plan (`core/plan.plan_tree_exact`): a level of `count` maps joins
@@ -1278,7 +1418,8 @@ def make_dataset(datatype):
 
 
 def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
-                    oracle=None, tag=None, in_situ=False, hold_k3=False):
+                    oracle=None, tag=None, in_situ=False, hold_k3=False,
+                    hold_k4=False):
     """One warm and one timed run of the `n`-map covis set (`tp`: its tree
     plan, or None); returns the kernel launch counts of the timed run, its
     poses by id and its maps_joined/s. Fails unless every pose id is there
@@ -1290,7 +1431,9 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     With `in_situ`, every K1 and K2 call of the warm run is held against
     its plain version on its own inputs (`_K1InSitu`, `_K2InSitu`), those
     of the root included; with `hold_k3`, every K3 call and plan of the
-    warm run (`_K3InSitu`). Given `tp`, it also prints the `utils/flops`
+    warm run (`_K3InSitu`); with `hold_k4`, every K4 call of the warm run
+    (`_K4InSitu`), and its root launch is timed alone into
+    `K4_TIMES[tag]`. Given `tp`, it also prints the `utils/flops`
     model's f32 rate of the timed run (a model figure: the model's
     per-block constants are not calibrated on the GPU). The timed run's
     `common.pose_digest` goes to `DIGESTS[tag]`."""
@@ -1321,6 +1464,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
                           held.enter_context(_K2InSitu()))
             if hold_k3:
                 k3 = held.enter_context(_K3InSitu())
+            if hold_k4:
+                k4 = held.enter_context(_K4InSitu())
             warm = solver.run(maps)
     finally:
         kernels.inv3x3_wy = fused
@@ -1330,6 +1475,10 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
           f"fused K2 shapes (P, N, K) by level {seen}", flush=True)
     if hold_k3:
         k3.report(f"{tag} warm run")
+    if hold_k4:
+        k4.report(f"{tag} warm run")
+        K4_TIMES[tag] = k4.time_root(f"{tag} warm run")
+        del k4
     if in_situ:
         _held_at_root(f"{tag} warm run", k1, k2)
         if k2.shapes != seen:
@@ -1396,6 +1545,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     if not res_max <= 1e-10:
         raise AssertionError(f"{tag}: res_max {res_max} > 1e-10")
     _require_launched(tag, launched)
+    if launched.get(K4, 0) <= 0:
+        raise AssertionError(f"{tag}: kernel {K4} was never launched")
     _repeats(f"{tag} warm and timed", warm, out)
     DIGESTS[tag] = pose_digest(out)
     return launched, _poses_by_id(out), (n - 1) / wall
@@ -1883,6 +2034,8 @@ def _mesh_main_path(datatype, maps, poses_gt, levels, mesh, single):
         raise AssertionError(f"{tag}: poses differ from the single-device "
                              f"run by {diff}")
     _require_launched(tag, launched)
+    if launched.get(K4, 0) <= 0:
+        raise AssertionError(f"{tag}: kernel {K4} was never launched")
     _repeats(f"{tag} warm and timed", warm, out)
     return launched
 
@@ -2346,7 +2499,7 @@ def phase_tools(datasets):
           flush=True)
     launched["stereo 3499"], _, _ = phase_main_path(
         "stereo", maps, gt, None, None, n=3499, oracle=ORACLE_ATE_3499,
-        tag="scale stereo 3499", in_situ=True)
+        tag="scale stereo 3499", in_situ=True, hold_k4=True)
     del maps, gt
     t_b = time.perf_counter()
 
@@ -2948,8 +3101,8 @@ def main() -> int:
     phase_small_trees()
     paths, single, rates = {}, {}, {}
     for d, (maps, gt, tp) in datasets.items():
-        paths[d], single[d], rates[d] = phase_main_path(d, maps, gt, tp,
-                                                        shapes, hold_k3=True)
+        paths[d], single[d], rates[d] = phase_main_path(
+            d, maps, gt, tp, shapes, hold_k3=True, hold_k4=True)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text_dir:
         launched, cli_poses = phase_entry_points(datasets, text_dir)
         paths.update(launched)
@@ -2995,7 +3148,17 @@ def main() -> int:
                chain_floor_ms=k3_times[("root", "float64")]["chain_floor_ms"],
                add_latency_ns=add_ns["float64"],
                note="the port's own kernel, no TPU kernel: a fixed-order "
-                    "sum where the JAX package calls jax.ops.segment_sum")
+                    "sum where the JAX package calls jax.ops.segment_sum"),
+        record(K4, "linearsfm_tpu_torch/csrc/schur_pairs.cu",
+               "linearsfm_tpu/ops/schur.py:176", 0.0,
+               K4_TIMES["scale stereo 3499"],
+               "K1 W/Y stripes + torch.baddbmm (schur.schur_stripes)",
+               bytes_ms=K4_TIMES["scale stereo 3499"]["bytes_ms"],
+               flop_ms=K4_TIMES["scale stereo 3499"]["flop_ms"],
+               note="the port's own kernel, no TPU kernel: the refine "
+                    "preconditioner's f32 Schur complement from the W "
+                    "block list, where the JAX package multiplies dense "
+                    "layouts; held exactly (torch.equal) in situ")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ the port may append one keyword-only parameter, `device`, and its entry
 points run on the card unless the caller passes `device="cpu"`.
 `tests/test_torch_api_parity.py` holds the two packages to that.
 
+`ROUTES` lists where the port answers a call form name for name but
+reaches the result by another route than the JAX package, so that the
+results differ in their last bits.
+
 `PARITY` lists every exception. Its keys name the JAX package's object by
 its path under the package ("ops.gauge.mono_scale",
 "core.join.JoinConfig.use_pallas"), or one parameter of it
@@ -128,4 +132,22 @@ PARITY = {
         "adds the keyword pairs=None: the level's (pose, feature) entry "
         "pairs through which K2's fused launch reads the dense Wd "
         "(`dense.entry_pairs`), built once per level by DenseTreeSolver"),
+}
+
+# Where the port takes another route to the same result (same call form,
+# last-bit differences). Each key names the JAX package's object by its
+# path under the package; each value is (the port's code on that route,
+# the reason).
+ROUTES = {
+    "ops.schur.assemble_schur": (
+        "ops.kernels.schur_pairs",
+        "the dense branch's float32 Schur product, the refine "
+        "preconditioner's: the port sums, from the W block list, Y_(p,f) "
+        "W_(q,f)^T over the pairs of entries that share a feature into "
+        "block (p, q) in one fixed order and subtracts the sum from A "
+        "(kernel K4), where the JAX package multiplies dense [6M, 3N] "
+        "layouts of W and Y; the same sum without its zero terms (99.9% of "
+        "the dense product at the 3,499-map roots), taken in another order, "
+        "so S moves in its last bits and the float64 PCG's iterates "
+        "follow"),
 }

@@ -18,6 +18,11 @@ runs it inside `segment.deterministic()`); `seg_plan` sorts an index list
 once for it. `add_chain`, beside it, is the probe that measures the card's
 dependent add latency (K3's chain floor), no kernel of the port.
 
+K4 `schur_pairs` (`csrc/schur_pairs.cu`) replaces no TPU kernel either: it
+forms the refine preconditioner's float32 Schur complement from the W
+block list, in a fixed order, where the JAX package densifies W and Y and
+multiplies the dense layouts (`ops/schur._assemble_schur_dense`).
+
 All sources are compiled with nvcc for sm_90a (one process per source, all
 started together) and linked into one shared library with a plain C
 interface, at first use, into `_build/` beside the package, and bound with
@@ -44,7 +49,8 @@ import torch
 
 from .segment import lane_ids, take
 
-launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0, "seg_sum_fixed": 0}
+launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0, "seg_sum_fixed": 0,
+            "schur_pairs": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -126,6 +132,9 @@ def build() -> ctypes.CDLL:
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _CHAIN[dtype] = fn
+    lib.schur_pairs_f32.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    lib.schur_pairs_f32.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -558,6 +567,152 @@ def seg_sum_fixed(vals: torch.Tensor, plan: SegPlan,
         raise RuntimeError(f"seg_sum_fixed: CUDA launch failed (error {err})")
     launches["seg_sum_fixed"] += 1
     return out
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor,
+           c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) of float32 tensors with one rounding to nearest, as the
+    card's fmaf: a b is exact in float64; a b + c is summed there with its
+    error (TwoSum) and rounded to odd (toward zero, the last bit set if
+    inexact), so that the one rounding to float32 is the correct one (53 >=
+    24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    # the exact sum lies strictly between s and its neighbour toward zero
+    # where err and s have opposite signs (s != 0 whenever err != 0)
+    trunc = torch.where((err != 0) & ((err > 0) != (s > 0)),
+                        torch.nextafter(s, torch.zeros_like(s)), s)
+    odd = torch.where(err != 0, (trunc.view(torch.int64) | 1).view(
+        torch.float64), trunc)
+    return odd.float()
+
+
+def _ordered_fma(acc: torch.Tensor, base: torch.Tensor, off: torch.Tensor,
+                 rank: torch.Tensor, y, w) -> None:
+    """acc[base[j] + off] += y(sel)[j] . w(sel)[j] over their last axis
+    (three values), as three fused multiply-adds in order (`_fma32`), for
+    every j, in increasing rank: step r takes the j of rank r at once (one
+    per element, so no step writes an element twice); y(sel) and w(sel)
+    give the operands of the indices sel."""
+    if not rank.numel():
+        return
+    order = torch.argsort(rank, stable=True)
+    for sel in torch.split(order, torch.bincount(rank).tolist()):
+        at = base[sel].view((-1,) + (1,) * off.dim()) + off
+        a, ys, ws = acc[at], y(sel), w(sel)
+        for k in range(3):
+            a = _fma32(ys[..., k], ws[..., k], a)
+        acc[at] = a
+
+
+def schur_pairs_ref(S: torch.Tensor, E: torch.Tensor, W: torch.Tensor,
+                    Y: torch.Tensor, eF: torch.Tensor,
+                    plan: CooPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: S[p, q] -= sum_f Y[p, f] W[q, f]^T and E[p] -=
+    sum_f Y[p, f] eF[f], in place, in the kernel's fixed order; returns (S,
+    E).
+
+    S [P, 6M, 6M] and E [P, 6M] (contiguous) hold A and eP on entry; W and
+    Y [P, K, 6, 3], eF [P, N, 3]; `plan` is the W list's plan by (lane,
+    pose, feature) over (M, N) (`schur.w_plan`), whose left-out entries
+    (row < 0) contribute nothing. Block (p, q) takes, for each of row p's
+    entries (p, f) in the plan's order, each entry (q, f) in the plan's
+    order, into a sum from zero, acc[i, j] = fma(Y[i, 2], W[j, 2],
+    fma(Y[i, 1], W[j, 1], fma(Y[i, 0], W[j, 0], acc[i, j]))), each step
+    rounded once (`_fma32`); then S = A - acc, E = eP - its sum with eF[f]
+    for W[j]. Runs on the device of its inputs: the pairs are listed at
+    once, then each step adds the terms of one rank within their block.
+    """
+    P, K = W.shape[:2]
+    M, N = plan.M, plan.N
+    dev = S.device
+    W, Y = W.reshape(P * K, 6, 3), Y.reshape(P * K, 6, 3)
+    eF = eF.reshape(P * N, 3)
+    rptr = plan.row_ptr.long()
+    n = int(rptr[-1])                         # live entries, by row
+    r = torch.repeat_interleave(torch.arange(P * M, device=dev),
+                                rptr[1:] - rptr[:-1])   # folded rows l M + p
+    e1 = plan.perm[:n].long()
+    f = (r // M) * N + plan.scol[:n].long()   # folded features l N + f
+    pos = torch.arange(n, device=dev)
+    six = torch.arange(6, device=dev)
+    # block row p of lane l is row 6 (l M + p) = 6 r of the stack
+    acc = torch.zeros_like(E)
+    _ordered_fma(acc.view(-1), 6 * r, six, pos - rptr[r],
+                 lambda sel: Y[e1[sel]], lambda sel: eF[f[sel]][:, None, :])
+    E.sub_(acc)
+    # the entries of each feature, by pose, then in list order (a stable
+    # sort of the row-ordered entries); every pair (row entry, entry of its
+    # feature) in the order (row position, feature position), and its rank
+    # within its block (p, q)
+    by_f = torch.argsort(f, stable=True)
+    cptr = torch.searchsorted(f[by_f], torch.arange(P * N + 1, device=dev))
+    c0 = cptr[f]
+    cnt = cptr[f + 1] - c0
+    src = torch.repeat_interleave(cnt)
+    i = torch.arange(src.numel(), device=dev)
+    other = by_f[c0[src] + i - (torch.cumsum(cnt, 0) - cnt)[src]]
+    q = r[other] % M
+    skey, order = torch.sort(r[src] * M + q, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = i - torch.searchsorted(skey, skey)
+    d = 6 * M
+    acc = torch.zeros_like(S)   # A - 0 leaves an untouched element as it is
+    _ordered_fma(acc.view(-1), 6 * r[src] * d + 6 * q,
+                 six[:, None] * d + six, rank,
+                 lambda sel: Y[e1[src[sel]]][:, :, None, :],
+                 lambda sel: W[e1[other[sel]]][:, None, :, :])
+    S.sub_(acc)
+    return S, E
+
+
+def schur_pairs(S: torch.Tensor, E: torch.Tensor, W: torch.Tensor,
+                Y: torch.Tensor, eF: torch.Tensor,
+                plan: CooPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: `schur_pairs_ref`'s update of S and E, in place, bit-equal to it,
+    from one launch on CUDA tensors (the plain version on the CPU).
+
+    float32 only (the refine preconditioner): S [P, 6M, 6M], E [P, 6M], W
+    and Y [P, K, 6, 3], eF [P, N, 3], all contiguous on one device, and the
+    W list's plan built there (`schur.w_plan`). Returns (S, E)."""
+    if S.device.type == "cpu":
+        return schur_pairs_ref(S, E, W, Y, eF, plan)
+    if S.device.type != "cuda":
+        raise ValueError(f"schur_pairs: no kernel for {S.device}")
+    ops = (S, E, W, Y, eF)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError("schur_pairs: float32 only, got "
+                        f"{[str(t.dtype) for t in ops]}")
+    P, K = W.shape[:2]
+    M, N = plan.M, plan.N
+    shapes = ((P, 6 * M, 6 * M), (P, 6 * M), (P, K, 6, 3), (P, K, 6, 3),
+              (P, N, 3))
+    if [tuple(t.shape) for t in ops] != list(shapes):
+        raise ValueError(f"schur_pairs: want S, E, W, Y, eF of shapes "
+                         f"{list(shapes)}, got {[list(t.shape) for t in ops]}")
+    if plan.rows.shape != (P, K):
+        raise ValueError("schur_pairs: the plan must be of the [P, K] list")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("schur_pairs: S, E, W, Y and eF must be contiguous")
+    if any(t.device != S.device for t in ops + (plan.perm,)):
+        raise ValueError("schur_pairs: operands on different devices")
+    if any(t.data_ptr() % 8 for t in (S, W, Y)):
+        raise ValueError("schur_pairs: S, W and Y must be 8-byte aligned")
+    if P * M == 0:
+        return S, E
+    build()
+    err = _lib.schur_pairs_f32(
+        S.data_ptr(), E.data_ptr(), W.data_ptr(), Y.data_ptr(),
+        eF.data_ptr(), plan.row_ptr.data_ptr(), plan.perm.data_ptr(),
+        plan.scol.data_ptr(), P, M, N,
+        torch.cuda.current_stream(S.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"schur_pairs: CUDA launch failed (error {err})")
+    launches["schur_pairs"] += 1
+    return S, E
 
 
 def add_chain(x: torch.Tensor, n: int) -> torch.Tensor:

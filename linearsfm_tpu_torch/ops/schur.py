@@ -4,11 +4,12 @@ Counterpart of `linearsfm_tpu/ops/schur.py`: the feature-block inverses
 fused with Y = W Vinv[wf] (`inv3x3_wy`, kernel K2), the reduced camera
 system `assemble_schur` — grouped per feature (`group_by_feature`) below
 `_DENSE_SCHUR_DIM` unless dense is forced, else the dense assembly
-(`_assemble_schur_dense`, kernel K1, feature-chunked above a byte budget) —
-the mixed-precision solve `solve_full_mixed` (f32 Schur Cholesky
-preconditioning an f64 PCG on the full information system), and the
-feature back-substitution. The device tree always assembles dense; the host
-executor's joins choose by size, as the reference does.
+(`_assemble_schur_dense`: A through kernel K1, and in float32 the Schur
+product from the W block list, kernel K4) — the mixed-precision solve
+`solve_full_mixed` (f32 Schur Cholesky preconditioning an f64 PCG on the
+full information system), and the feature back-substitution. The device
+tree always assembles dense; the host executor's joins choose by size, as
+the reference does.
 
 Every operand carries the leading lane dimension P: one call solves every
 pair of a tree level. Block lists are zero-padded; padding contributes
@@ -37,8 +38,10 @@ _SCHUR_CHUNK_BLOCKS = 1 << 20
 
 
 def dense_w_bytes() -> int:
-    """Byte budget of one dense [6M, 3N] W/Y layout; above it the f32
-    assembly runs feature-chunked. Read at call time (env
+    """Byte budget of one dense [6M, 3N] W/Y layout of `schur_stripes`;
+    above it the stripes cut the feature axis. Only `schur_stripes`'s
+    callers (`parallel/shard_solve`) read it: the joins' f32 assembly forms
+    no dense W/Y layout (kernel K4). Read at call time (env
     LINEARSFM_DENSE_W_BYTES), default 512 MB as in the reference."""
     return int(os.environ.get("LINEARSFM_DENSE_W_BYTES", 1 << 29))
 
@@ -127,19 +130,18 @@ def dense_a32(U, Uij, M: int):
 
 
 def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
-    """S [P, 6M, 6M] = A - (W Vinv) W^T and E [P, 6M] = eP - (W Vinv) eF,
-    through dense [6M, 3N] layouts of W and Y = W Vinv.
+    """S [P, 6M, 6M] = A - (W Vinv) W^T and E [P, 6M] = eP - (W Vinv) eF.
 
     Yb: the blocks W @ Vinv[wf] of the W list (`inv3x3_wy`), where the
-    reference takes Vinv and forms them here. The W list is sorted once
-    (`kernels.coo_plan`): Wd, Yd and every feature stripe of both densify
-    that one plan (`w_plan`). float32 (the preconditioner side): A from
-    `dense_a32`, and above `dense_w_bytes()` per lane the feature axis cut
-    into stripes, column windows of the plan (`schur_stripes`): S and E
-    accumulate stripe by stripe, bounding the live set by two stripes.
-    float64 (the
-    plain-Cholesky levels) densifies A's transposed blocks directly, as the
-    reference does.
+    reference takes Vinv and forms them here. float32 (the preconditioner
+    side): A from `dense_a32`, then kernel K4 (`kernels.schur_pairs`) sums,
+    in a fixed order, Y_(p,f) W_(q,f)^T over the pairs of W entries that
+    share a feature into block (p, q) and subtracts the sum from A (E the
+    same with Y_(p,f) eF_f), over the list's plan (`w_plan`): the nonzero
+    products alone, where the reference multiplies dense [6M, 3N] layouts
+    of W and Y that are almost all zeros. float64 (the plain-Cholesky levels) densifies A's
+    transposed blocks, W and Y through K1 (one sort of the W list,
+    `kernels.coo_plan`) and multiplies them, as the reference does.
     """
     P, N = eF.shape[0], eF.shape[1]
     dtype, dev = U.dtype, U.device
@@ -159,14 +161,15 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
 
     require_full_f32(dev)
     S = dense_a32(U, Uij, M)
-    wplan = w_plan(W, Wpf, M, N)
-    E = schur_stripes(S, eP.reshape(P, -1).to(dtype), wplan, W, Yb, eF, M)
-    return S, E
+    E = eP.reshape(P, -1).to(dtype, copy=True).contiguous()
+    return kernels.schur_pairs(S, E, W.contiguous(), Yb.contiguous(),
+                               eF.contiguous(), w_plan(W, Wpf, M, N))
 
 
 def w_plan(W, Wpf, M: int, N: int) -> kernels.CooPlan:
-    """K1's plan of a float32 W list (zero-valued entries to row -1): Wd,
-    Yd and every feature stripe of both densify this one sort."""
+    """K1's plan of a float32 W list, zero-valued entries to row -1 (they
+    leave the plan): K4 walks it, and Wd, Yd and every feature stripe of
+    `schur_stripes` densify this one sort."""
     wp, wf = Wpf[..., 0], Wpf[..., 1]
     return kernels.coo_plan(torch.where((W != 0).any(dim=(-1, -2)), wp, -1),
                             wf, M, N)
@@ -178,7 +181,9 @@ def schur_stripes(S, E, wplan, W, Yb, eF, M: int, lo: int = 0,
     [lo, lo + width) (all N by default; past N the columns are empty), with
     Wd and Yd densified by K1: all at once while a dense [6M, 3 width] f32
     layout fits `dense_w_bytes()`, else in the fewest equal stripes that
-    do, so that at most two stripes are live. Returns the new E."""
+    do, so that at most two stripes are live. Returns the new E. The
+    feature-sharded solve (`parallel/shard_solve`) runs it on each shard's
+    window; the joins' float32 assembly runs kernel K4 instead."""
     P, N = eF.shape[0], eF.shape[1]
     width = N - lo if width is None else width
     nch = -(-(6 * M * 3 * width * 4) // dense_w_bytes())

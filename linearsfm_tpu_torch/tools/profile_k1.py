@@ -12,8 +12,10 @@ median.
 
 From the profiler's Chrome trace it reports:
 * every K1 launch (kernel name containing "blockcoo"), in launch order, with
-  its tree level, its operand (A, Wd or Yd: per level A first, then Wd and
-  Yd per feature stripe), its output's bytes and their write bound (bytes
+  its tree level, its operand (A, Wd or Yd: per level A first; a tree
+  whose refine joins form the Schur product with kernel K4 launches K1 for
+  A alone, an older tree then Wd and Yd per feature stripe), its output's
+  bytes and their write bound (bytes
   over 3.35 TB/s, the H100 SXM's HBM rate), and its device time;
 * the device time of every other kernel launched inside K1's Python wrappers
   (output fills, the sort, `searchsorted`, ...), by wrapper and kernel name;

@@ -8,7 +8,8 @@ package gives one (`jnp.float64` equals `np.float64`, a dtype name equals
 the torch dtype); the port may append only a keyword-only `device`.
 Otherwise `linearsfm_tpu_torch/_parity.py` names the name, or the one
 parameter that differs. Separate cases fail on a stale entry there and on
-a counterpart that does not exist.
+a counterpart that does not exist, and on a route (`ROUTES`) that names no
+public object of the JAX package or no code of the port.
 """
 
 import dataclasses
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 import linearsfm_tpu
-from linearsfm_tpu_torch._parity import PARITY
+from linearsfm_tpu_torch._parity import PARITY, ROUTES
 
 # one intra-op thread: the suite's workers share the machine's cores, and
 # an oversubscribed thread pool slows the trees' small ops many times over
@@ -302,3 +303,15 @@ def test_parity_counterparts_exist():
         assert callable(obj), (k, where)
         if p is not None:
             assert p in inspect.signature(obj).parameters, (k, where)
+
+
+def test_routes_name_public_objects_and_port_code():
+    """Each entry of `_parity.ROUTES` names a public function or class of
+    the JAX package that the port answers name for name, and code of the
+    port that exists, with a reason."""
+    for k, (where, why) in ROUTES.items():
+        rel, name = k.rsplit(".", 1)
+        assert rel in MODULES and name in _public(_import(JAX, rel)), k
+        assert k not in PARITY and _resolve(k) is not None, k
+        assert callable(_resolve(where)), (k, where)
+        assert len(why) > 20, k

@@ -1,4 +1,5 @@
-"""Kernels K1 (`blockcoo_to_dense`) and K2 (`inv3x3_sym`) of the PyTorch port.
+"""Kernels K1 (`blockcoo_to_dense`), K2 (`inv3x3_sym`) and K4
+(`schur_pairs`) of the PyTorch port.
 
 * K1's plain PyTorch version against the reference's Pallas kernel in
   interpret mode (the cases of tests/test_pallas.py, K = 0, a lane-folded
@@ -13,6 +14,11 @@
   plain version over the masked and clamped list the Schur assembly used to
   build per feature stripe; the planned call on the CPU equals the plain
   version;
+* K4's plain version against A - Yd Wd^T and eP - Yd eF in float64 over
+  dense layouts (lanes, padding, zero blocks, duplicates, a feature seen
+  once and one seen by every pose, an empty lane), bit for bit against a
+  sequential loop in the kernel's order, and its fused multiply-add
+  (`kernels._fma32`) against exact rational arithmetic;
 * the wrappers' dispatch: CPU tensors take the plain version and count no
   launch; a device without a kernel raises instead of falling back;
 * the port imports neither jax nor the reference package;
@@ -21,7 +27,8 @@
   at tile edges (widths that are not a
   multiple of the tile width, block rows that are not a multiple of the
   tile's, rows whose bytes are not a multiple of 16), on stripe windows of
-  one plan, with one launch per planned call.
+  one plan, with one launch per planned call; K4 bit for bit its plain
+  version on the CPU, and two launches bit for bit each other.
 
 JAX is imported inside the tests that compare with it, so that the `cuda`
 test runs where jax is not installed:
@@ -404,6 +411,175 @@ def test_inv3x3_wy_dispatch_counts_only_kernel_launches():
         kernels.inv3x3_wy(*meta)
 
 
+# K4 (`schur_pairs`) cases: (name, P, M, N, K). `_pair_case` adds to each
+# padding entries, zero blocks at real coordinates, duplicate (pose,
+# feature) entries, a feature seen once, a feature seen by every pose, an
+# entry outside [0, M) x [0, N), and an empty last lane; with K >> N each
+# pose pair shares many features
+PAIR_CASES = [("three lanes", 3, 9, 25, 140),
+              ("level-1 lanes of 4 poses", 12, 4, 10, 36),
+              ("dense co-visibility", 2, 5, 12, 150)]
+
+
+def _pair_case(P, M, N, K, seed=53):
+    """float32 numpy (A, eP, W, Y, eF, Wpf) of a K4 case: Y = W G[wf] for
+    random 3x3 blocks G, so a zero W block has a zero Y, as in the joins."""
+    rng = np.random.default_rng(seed + P * 1000 + M * 100 + N)
+    wp = rng.integers(0, M, (P, K))
+    wf = rng.integers(0, N, (P, K))
+    W = rng.normal(size=(P, K, 6, 3)).astype(np.float32)
+    wf[:, :M] = 1                       # feature 1: seen by every pose
+    wp[:, :M] = np.arange(M)
+    wf[:, M] = 0                        # feature 0: seen once
+    wf[:, M + 1:][wf[:, M + 1:] == 0] = 2
+    wp[:, M + 2], wf[:, M + 2] = wp[:, M + 3], wf[:, M + 3]   # duplicate
+    W[:, M + 4] = 0.0                   # a dropped coupling: zero block
+    wp[:, M + 5], wf[:, M + 5] = M, N   # outside the lane's poses and features
+    W[:, ::9], wp[:, ::9], wf[:, ::9] = 0.0, 0, 0   # padding
+    W[-1], wp[-1], wf[-1] = 0.0, 0, 0   # an empty lane
+    G = rng.normal(size=(P, N + 1, 3, 3)).astype(np.float32)
+    Y = np.einsum("pkij,pkjl->pkil", W, G[np.arange(P)[:, None], wf])
+    A = rng.normal(size=(P, 6 * M, 6 * M)).astype(np.float32)
+    eP = rng.normal(size=(P, 6 * M)).astype(np.float32)
+    eF = rng.normal(size=(P, N, 3)).astype(np.float32)
+    return A, eP, W, Y.astype(np.float32), eF, np.stack([wp, wf], -1)
+
+
+def _pairs_plain(A, eP, W, Y, eF, Wpf, M, N):
+    """K4's plain version on a `_pair_case` (copies of A and eP)."""
+    from linearsfm_tpu_torch.ops import schur
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (W, Y, eF)]
+    Wt = t[0]
+    S, E = torch.from_numpy(A.copy()), torch.from_numpy(eP.copy())
+    return kernels.schur_pairs(S, E, *t, schur.w_plan(
+        Wt, torch.from_numpy(Wpf), M, N))
+
+
+@pytest.mark.parametrize("case", PAIR_CASES, ids=lambda c: c[0])
+def test_schur_pairs_plain_matches_dense_float64(case):
+    """K4's plain version against A - Yd Wd^T and eP - Yd eF in float64
+    over dense layouts of each lane's list: rtol 1e-5 (plus 1e-5 of the
+    largest magnitude) in float32."""
+    _, P, M, N, K = case
+    A, eP, W, Y, eF, Wpf = _pair_case(P, M, N, K)
+    S, E = _pairs_plain(A, eP, W, Y, eF, Wpf, M, N)
+    for p in range(P):
+        Wd = np.zeros((6 * M, 3 * N))
+        Yd = np.zeros((6 * M, 3 * N))
+        for k, (i, f) in enumerate(Wpf[p]):
+            if 0 <= i < M and 0 <= f < N:
+                Wd[6 * i:6 * i + 6, 3 * f:3 * f + 3] += W[p, k]
+                Yd[6 * i:6 * i + 6, 3 * f:3 * f + 3] += Y[p, k]
+        S64 = A[p].astype(np.float64) - Yd @ Wd.T
+        E64 = eP[p].astype(np.float64) - Yd @ eF[p].reshape(-1)
+        np.testing.assert_allclose(S[p].numpy(), S64, rtol=1e-5,
+                                   atol=1e-5 * np.abs(S64).max())
+        np.testing.assert_allclose(E[p].numpy(), E64, rtol=1e-5,
+                                   atol=1e-5 * np.abs(E64).max())
+    assert np.array_equal(S[-1].numpy(), A[-1])   # the empty lane
+    assert np.array_equal(E[-1].numpy(), eP[-1])
+
+
+@pytest.mark.parametrize("case", PAIR_CASES, ids=lambda c: c[0])
+def test_schur_pairs_plain_keeps_the_fixed_order(case):
+    """Bit for bit, K4's plain version is a sequential loop in the order
+    the kernel keeps: block (p, q) takes, for each entry (p, f) in feature
+    order (then list order), each entry (q, f) in pose order (then list
+    order), the term y0 w0 + y1 w1 + y2 w2 added to a sum from zero as
+    three fused multiply-adds (`kernels._fma32`, held to exact arithmetic
+    below), then A - the sum; E[p] the same with eF[f]."""
+    _, P, M, N, K = case
+    A, eP, W, Y, eF, Wpf = _pair_case(P, M, N, K)
+    S, E = _pairs_plain(A, eP, W, Y, eF, Wpf, M, N)
+    S0, E0 = torch.zeros(A.shape), torch.zeros(eP.shape)
+    Wt, Yt, eFt = (torch.from_numpy(a) for a in (W, Y, eF))
+
+    def fma3(acc, y, w):
+        for k in range(3):
+            acc = kernels._fma32(y[..., k], w[..., k], acc)
+        return acc
+    for p in range(P):
+        live = [k for k in range(K) if W[p, k].any()
+                and 0 <= Wpf[p, k, 0] < M and 0 <= Wpf[p, k, 1] < N]
+        by_row = sorted(live, key=lambda k: (Wpf[p, k, 0], Wpf[p, k, 1], k))
+        by_feat = sorted(live, key=lambda k: (Wpf[p, k, 1], Wpf[p, k, 0], k))
+        for k1 in by_row:
+            i, f = (int(x) for x in Wpf[p, k1])
+            E0[p, 6 * i:6 * i + 6] = fma3(E0[p, 6 * i:6 * i + 6], Yt[p, k1],
+                                          eFt[p, f][None, :])
+            for k2 in (k for k in by_feat if Wpf[p, k, 1] == f):
+                q = int(Wpf[p, k2, 0])
+                blk = S0[p, 6 * i:6 * i + 6, 6 * q:6 * q + 6]
+                blk.copy_(fma3(blk, Yt[p, k1][:, None, :],
+                               Wt[p, k2][None, :, :]))
+    assert torch.equal(S, torch.from_numpy(A) - S0)
+    assert torch.equal(E, torch.from_numpy(eP) - E0)
+
+
+def _fma_exact(a, b, c):
+    """The float32 nearest to a b + c (ties to even), from exact rational
+    arithmetic."""
+    from fractions import Fraction
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    g = np.float32(float(x))
+    cands = [g, np.nextafter(g, np.float32(np.inf)),
+             np.nextafter(g, np.float32(-np.inf))]
+    return min(cands, key=lambda h: (abs(Fraction(float(h)) - x),
+                                     int(np.array(h).view(np.int32)) & 1))
+
+
+def test_fma32_rounds_once():
+    """`kernels._fma32`, the plain version's fused multiply-add, equals the
+    exactly rounded a b + c on random float32 triples (cancellation,
+    magnitudes far apart, subnormal results) and on a case where rounding
+    the float64 sum to float32 rounds twice and misses."""
+    rng = np.random.default_rng(61)
+    n = 3000
+    a, b, c = ((rng.normal(size=n) * 2.0 ** rng.integers(-e, e, n)).astype(
+        np.float32) for e in (30, 30, 60))
+    c[::3] = -(a[::3] * b[::3])                          # cancellation
+    a[1::7] = np.float32(1.5e-23)                        # subnormal results
+    b[1::7], c[1::7] = np.float32(2e-20), np.float32(1e-45)
+    # a b = -2^-24 + 2^-70 and c = 1 + 2^-23: the sum is just above the
+    # midpoint 1 + 2^-24; rounded to float64 first it is the midpoint
+    a[0] = np.float32(-(2.0 ** -24) * (1 + 2.0 ** -23))
+    b[0] = np.float32(1 - 2.0 ** -23)
+    c[0] = np.float32(1 + 2.0 ** -23)
+    got = kernels._fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    twice = (torch.from_numpy(a[:1]).double() * float(b[0]) + float(c[0]))
+    assert float(twice.float()) == 1.0 and float(got[0]) == 1 + 2.0 ** -23
+
+
+def test_schur_pairs_dispatch_counts_only_kernel_launches():
+    """The CPU takes the plain version and counts no launch; the f32 Schur
+    assembly runs it and leaves its inputs alone; a device without a kernel
+    raises instead of falling back."""
+    from linearsfm_tpu_torch.ops import schur
+    A, eP, W, Y, eF, Wpf = _pair_case(3, 9, 25, 140)
+    before = dict(kernels.launches)
+    S, E = _pairs_plain(A, eP, W, Y, eF, Wpf, 9, 25)
+    assert kernels.launches == before
+    P, M = 3, 9
+    U = torch.zeros((P, M, 6, 6))
+    Uij = torch.arange(M).expand(P, 2, M).transpose(1, 2).contiguous()
+    eP_t, Y_t = torch.from_numpy(eP.reshape(P, M, 6)), torch.from_numpy(Y)
+    keep = eP_t.clone(), Y_t.clone()
+    S2, E2 = schur._assemble_schur_dense(
+        U, Uij, torch.from_numpy(W), torch.from_numpy(Wpf), Y_t, eP_t,
+        torch.from_numpy(eF), M)
+    assert torch.equal(eP_t, keep[0]) and torch.equal(Y_t, keep[1])
+    S1, E1 = _pairs_plain(np.zeros_like(A), eP, W, Y, eF, Wpf, M, 25)
+    assert torch.equal(S2, S1) and torch.equal(E2, E1)
+    assert kernels.launches == before
+    meta = [torch.empty(t.shape, device="meta") for t in (S, E)]
+    plan = schur.w_plan(torch.from_numpy(W), torch.from_numpy(Wpf), M, 25)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.schur_pairs(*meta, *(torch.empty(a.shape, device="meta")
+                                     for a in (W, Y, eF)), plan)
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port (each module and subpackage that
     `pkgutil.walk_packages` finds under `linearsfm_tpu_torch`, the tools
@@ -728,3 +904,37 @@ def test_sharded_full_mixed_on_cuda():
     torch.testing.assert_close(xp, want[0], atol=1e-9, rtol=0)
     torch.testing.assert_close(xf, want[1], atol=1e-9, rtol=0)
     assert float(res[0]) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAIR_CASES + [("root-like one lane", 1, 600,
+                                                 2400, 60000)],
+                         ids=lambda c: c[0])
+def test_schur_pairs_kernel_matches_plain_on_cuda(case):
+    """On the card K4 equals its plain version on the CPU bit for bit (S
+    and E), two launches give the same bits, one launch a call; float64
+    and non-contiguous operands raise."""
+    _needs_card()
+    from linearsfm_tpu_torch.ops import schur
+    _, P, M, N, K = case
+    A, eP, W, Y, eF, Wpf = _pair_case(P, M, N, K)
+    want = _pairs_plain(A, eP, W, Y, eF, Wpf, M, N)
+    W_d, Y_d, eF_d, Wpf_d = (torch.from_numpy(a).cuda() for a in
+                             (W, Y, eF, Wpf))
+    plan = schur.w_plan(W_d, Wpf_d, M, N)
+    got = []
+    for _ in range(2):
+        S, E = torch.from_numpy(A).cuda(), torch.from_numpy(eP).cuda()
+        n0 = kernels.launches["schur_pairs"]
+        kernels.schur_pairs(S, E, W_d, Y_d, eF_d, plan)
+        torch.cuda.synchronize()
+        assert kernels.launches["schur_pairs"] == n0 + 1
+        got.append((S.cpu(), E.cpu()))
+    for g_, w_ in zip(got[0], want):
+        assert torch.equal(g_, w_)
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        kernels.schur_pairs(S.double(), E, W_d, Y_d, eF_d, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.schur_pairs(S.transpose(1, 2), E, W_d, Y_d, eF_d, plan)

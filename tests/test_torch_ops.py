@@ -243,7 +243,11 @@ def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
     the reference inverts them with its jnp closed form, the port takes Y
     from `schur.inv3x3_wy` (one K2 call). float32: rtol 1e-5 (plus 1e-5 of
     the largest magnitude) — the port assembles A as D + D^T with a
-    symmetrised diagonal and multiplies in another order. float64: 1e-12."""
+    symmetrised diagonal and sums the block products of the W list (K4's
+    plain version) where the reference multiplies dense layouts. "f32
+    chunked" holds the port's feature stripes (`schur.schur_stripes` over
+    `dense_a32`, which the feature-sharded solve runs) against the
+    reference's chunked assembly. float64: 1e-12."""
     dtype = np.float64 if mode.startswith("f64") else np.float32
     U, Uij, W, Wpf, Vinv, eP, eF, M = _schur_inputs(dtype)
     if mode == "f32 chunked":    # ~3 feature stripes in both packages
@@ -259,9 +263,16 @@ def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
         Y = lane(np.einsum("kiz,kzf->kif", W, Vinv[Wpf[:, 1]]))
     S_j, E_j = jschur._assemble_schur_dense(
         *(jnp.asarray(a) for a in (U, Uij, W, Wpf, Vinv, eP, eF)), M)
-    S_t, E_t = tschur._assemble_schur_dense(
-        lane(U), lane(Uij, torch.int64), lane(W), lane(Wpf, torch.int64),
-        Y, lane(eP), lane(eF), M)
+    if mode == "f32 chunked":
+        Wt, Wpft = lane(W), lane(Wpf, torch.int64)
+        S_t = tschur.dense_a32(lane(U), lane(Uij, torch.int64), M)
+        E_t = tschur.schur_stripes(
+            S_t, lane(eP).reshape(1, -1),
+            tschur.w_plan(Wt, Wpft, M, eF.shape[0]), Wt, Y, lane(eF), M)
+    else:
+        S_t, E_t = tschur._assemble_schur_dense(
+            lane(U), lane(Uij, torch.int64), lane(W), lane(Wpf, torch.int64),
+            Y, lane(eP), lane(eF), M)
     S_j, E_j = np.asarray(S_j), np.asarray(E_j)
     if dtype == np.float64:
         np.testing.assert_allclose(S_t[0].numpy(), S_j, atol=1e-12)
