@@ -11,8 +11,8 @@ Phases, each printing its lines; any failure exits non-zero:
 3. kernel K1 (`blockcoo_to_dense`) against its plain PyTorch version on the
    card: K = 0, padding rows, duplicates, unsorted rows, lane-folded
    batches, float64, and the level-1 and root shapes of the main path,
-   including a feature stripe as a list of its own and, as the Schur
-   assembly runs them, column windows of one plan (`coo_plan`): the root
+   including a feature stripe as a list of its own and column windows of
+   one plan (`coo_plan`, `blockcoo_to_dense_planned`'s window): the root
    stripe and stereo level 10's two stripes. Every main-path list runs in
    float32 and again in float64 (the direct levels of the entry point's
    paths), each through both wrappers: a plan of its own list
@@ -148,8 +148,7 @@ Phases, each printing its lines; any failure exits non-zero:
    eP before each launch) beside its byte bound (W, Y and eF read once,
    the touched S blocks read and written once, over 3.35 TB/s), the f32
    flop bound of its nonzero block products (216 each, over 67 TFLOP/s),
-   the plain version and the calls it replaced (K1's W and Y stripes and
-   `torch.baddbmm`, `schur.schur_stripes`); (c) the
+   and the plain version; (c) the
    profiling tools on phases 6-7's sets: `profile_level_parts.level_parts`
    at every level of both (T / TJ / full ms), `profile_device_tree.profile`
    and `bench_root.root_parts` on stereo, then `microbench` at its defaults
@@ -463,8 +462,8 @@ def phase_kernels():
                                        sort_rows=True, zero_frac=0.03,
                                        col_window=(2928, 2928)),
     }
-    # stripes densified as the Schur assembly does: one plan of the whole
-    # W list, one launch per window (name: list, windows)
+    # stripes of one plan of the whole W list, one launch per window
+    # (name: list, windows)
     windowed = {
         "root W stripe 6x3 (plan)": (
             _coo_case(g, 1, 196320, 2048, 11712, 3, sort_rows=True,
@@ -1273,12 +1272,11 @@ class _K4InSitu:
     def time_root(self, tag, reps=5):
         """The kept root launch timed alone (CUDA events, A and eP copied
         in before each launch, outside the events; median of `reps` after
-        one warm launch), beside its bounds, the plain version and the calls
-        it replaced (`schur.schur_stripes`: K1's W and Y stripes and
-        `torch.baddbmm`). Returns the kernel record's times."""
+        one warm launch), beside its bounds and the plain version. Returns
+        the kernel record's times."""
         import statistics
         import torch
-        from linearsfm_tpu_torch.ops import kernels, schur
+        from linearsfm_tpu_torch.ops import kernels
         from linearsfm_tpu_torch.utils import flops
         S0, E0, W, Y, eF, plan = self.kept
         P, M, N = W.shape[0], plan.M, plan.N
@@ -1305,8 +1303,6 @@ class _K4InSitu:
                    reps)
         plain_ms = timed(lambda S, E: kernels.schur_pairs_ref(
             S, E, W, Y, eF, plan), 2)
-        lib_ms = timed(lambda S, E: schur.schur_stripes(S, E, plan, W, Y, eF,
-                                                        M), 2)
         bound = max(bytes_ms, flop_ms)
         by = "bytes" if bytes_ms >= flop_ms else "flops"
         print(f"{tag}: K4 at the root (P, M, N) ({P}, {M}, {N}): {live} live "
@@ -1314,11 +1310,9 @@ class _K4InSitu:
               f"blocks ({touched / (P * M * M):.1%} of S); kernel "
               f"{ms:.4f} ms vs bound {bound:.4f} ms ({by}; bytes "
               f"{bytes_ms:.4f}, flops {flop_ms:.4f}) = {bound / ms:.1%}; "
-              f"plain version {plain_ms:.3f} ms; K1 W/Y stripes + "
-              f"torch.baddbmm (the calls it replaced) {lib_ms:.3f} ms",
-              flush=True)
+              f"plain version {plain_ms:.3f} ms", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                    library_ms=lib_ms, bytes_ms=bytes_ms, flop_ms=flop_ms,
+                    library_ms=None, bytes_ms=bytes_ms, flop_ms=flop_ms,
                     products=products, touched_blocks=touched)
 
 
@@ -3152,7 +3146,8 @@ def main() -> int:
         record(K4, "linearsfm_tpu_torch/csrc/schur_pairs.cu",
                "linearsfm_tpu/ops/schur.py:176", 0.0,
                K4_TIMES["scale stereo 3499"],
-               "K1 W/Y stripes + torch.baddbmm (schur.schur_stripes)",
+               "none: the dense product it replaced is deleted (K1's W/Y "
+               "stripes + torch.baddbmm, timed in PERF.md)",
                bytes_ms=K4_TIMES["scale stereo 3499"]["bytes_ms"],
                flop_ms=K4_TIMES["scale stereo 3499"]["flop_ms"],
                note="the port's own kernel, no TPU kernel: the refine "

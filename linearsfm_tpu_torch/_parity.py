@@ -150,4 +150,10 @@ ROUTES = {
         "the dense product at the 3,499-map roots), taken in another order, "
         "so S moves in its last bits and the float64 PCG's iterates "
         "follow"),
+    "parallel.shard_solve.sharded_full_mixed": (
+        "ops.kernels.schur_pairs",
+        "each shard's float32 Schur term, A_d - sum over its features of "
+        "Y_f W_f^T, is K4 on the plan of the W entries it owns, as in the "
+        "joins, where the JAX package multiplies dense layouts of the "
+        "shard's W and Y windows; the summed S moves in its last bits"),
 }

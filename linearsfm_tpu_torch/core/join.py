@@ -6,13 +6,14 @@ re-expressed in `cur`'s gauge, stack the two information forms and solve
 once: ``x* = (I_end + I_cur)^{-1} (I_end x_end + I_cur x_cur)``. Every lane
 of the lane-stacked inputs is one independent pair.
 
-Two solves, as in the reference: method "refine" (stereo, and mono with
-pin "sign") is `schur.solve_full_mixed`, the f32 Schur factor
-preconditioning an f64 PCG on the full system; every other combination
-("direct", and mono "refine" with pin "zero") forms the reduced system in
-the information dtype (`schur.inv3x3_wy`, `schur.assemble_schur`) and
-solves it with `solve.solve_reduced` — a plain Cholesky, or for "refine"
-an f32 factor with refinement sweeps — then back-substitutes the features.
+Two solves, as in the reference, chosen for both joins by `_solve`: method
+"refine" (stereo, and mono with pin "sign") is `schur.solve_full_mixed`,
+the f32 Schur factor preconditioning an f64 PCG on the full system; every
+other combination ("direct", and mono "refine" with pin "zero") forms the
+reduced system in the information dtype (`schur.inv3x3_wy`,
+`schur.assemble_schur`) and solves it with `solve.solve_reduced` — a plain
+Cholesky, or for "refine" an f32 factor with refinement sweeps — then
+back-substitutes the features.
 Both assemble grouped or dense as `cfg.max_obs` / `cfg.dense_schur` say.
 With `cfg.mesh` (one-lane joins: the root levels) they run with the
 feature axis sharded over the mesh, as the reference routes them:
@@ -95,14 +96,118 @@ def _match_features(end_ids, end_valid, cur_ids, cur_valid, n1, out_cap):
     return joint, hit
 
 
-def _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo: int, cfg: JoinConfig):
-    """(Vinv, S, E): the feature-block inverses and the reduced camera
-    system in the information dtype, from one K2 launch (Vinv and
-    Y = W Vinv[wf]) and `schur.assemble_schur`."""
-    Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
-    S, E = schur.assemble_schur(U, Uij, W, Wpf, Yb, eP, eF, Mo, cfg.max_obs,
-                                force_dense=cfg.dense_schur)
-    return Vinv, S, E
+def _solve(cfg: JoinConfig, U, Uij, W, Wpf, V, eP, eF, Mo: int, fixed,
+           fixc=None, sign=None):
+    """(x_p, x_f, res [P]) of the stacked system: both joins' one choice of
+    solver for (mesh, method, pin); fixc/sign [P] is the mono scale pin
+    (None for stereo, which has none). "refine", unless pinned by "zero",
+    is the full-system PCG; the rest solve the reduced system and return a
+    NaN residual."""
+    pinned = fixc is not None
+    if (cfg.method not in ("refine", "direct")
+            or pinned and cfg.pin not in ("sign", "zero")):
+        raise ValueError(f"no join solve for method={cfg.method!r}"
+                         + f", pin={cfg.pin!r}" * pinned)
+    P = eP.shape[0]
+    if cfg.method == "refine" and not (pinned and cfg.pin == "zero"):
+        kw = dict(iters=cfg.refine_iters, escalate_iters=cfg.escalate_iters,
+                  escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol,
+                  **(dict(fixc=fixc, sign=sign) if pinned else {}))
+        if cfg.mesh is None:
+            return schur.solve_full_mixed(
+                U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
+                force_dense=cfg.dense_schur, **kw)
+        # the production accuracy: the feature-sharded full-system PCG
+        return shard_solve.sharded_full_mixed(
+            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, mesh=cfg.mesh,
+            axis=cfg.mesh_axis, **kw)
+    early = pinned and cfg.pin == "sign" and cfg.mesh is None
+    if cfg.mesh is not None:
+        # as the reference: with gauge-conditioned inputs the pinned
+        # coordinate carries no information, so the right-hand side needs
+        # no correction; the pin is written back after the
+        # back-substitution
+        xp, xf = shard_solve.sharded_schur_solve(
+            U, Uij, W, Wpf, V, eP, eF, Mo, cfg.max_obs, cfg.mesh,
+            axis=cfg.mesh_axis, fixed_mask=fixed, method=cfg.method,
+            refine_iters=cfg.refine_iters)
+    else:
+        # direct, or refine with pin "zero" (the reduced system's f32
+        # factor with refinement sweeps, as the reference): the reduced
+        # system in the information dtype from one K2 launch (Vinv and
+        # Y = W Vinv[wf]) and `schur.assemble_schur`
+        Vinv, Yb = schur.inv3x3_wy(V, W, Wpf)
+        S, E = schur.assemble_schur(U, Uij, W, Wpf, Yb, eP, eF, Mo,
+                                    cfg.max_obs, force_dense=cfg.dense_schur)
+        if early:
+            E = E - S[torch.arange(P, device=eP.device), :, fixc] * sign[:, None]
+        xp = solve.solve_reduced(S, E, fixed_mask=fixed, method=cfg.method,
+                                 refine_iters=cfg.refine_iters
+                                 ).reshape(P, Mo, 6)
+        if early:
+            # exact constrained fusion: back-substitute with the pinned
+            # coordinate at its value
+            xp = schur.pin_coordinate(xp, fixc, sign)
+        xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
+    if pinned and not early:
+        # pin "zero" (the reference C++ order) and the mesh: back-substituted
+        # with the pinned coordinate at 0, set to sign afterwards
+        xp = schur.pin_coordinate(xp, fixc, sign)
+    return xp, xf, eP.new_full((P,), torch.nan)
+
+
+def _fuse(end, cur, cfg: JoinConfig, blocks, poses, slot2, place_eP,
+          pose_ids2, fixed, n_poses, gauge, fixc=None, sign=None):
+    """Both joins' fusion after the datatype's pose mapping: match the
+    features, stack the lists and the information vectors, solve
+    (`_solve`), build the joint map. blocks: (endU, endW, curU, curW) in the
+    information dtype; poses: the (end, cur) states for the information
+    vectors; slot2(s) maps cur's pose slots s to joint ones;
+    place_eP(eP1, eP2) -> the joint eP; fixed [P, 6Mo] and fixc/sign: the
+    solve's gauge mask and mono pin; the rest are the joint map's."""
+    P = end.poses.shape[0]
+    N1, No, Mo = end.N, end.N + cur.N, end.M + cur.M
+    dev = end.poses.device
+    endU, endW, curU, curW = blocks
+    endV, curV = end.V.to(endU.dtype), cur.V.to(endU.dtype)
+
+    joint2, matched = _match_features(end.feat_ids, end.feat_mask(),
+                                      cur.feat_ids, cur.feat_mask(),
+                                      end.n_feats, No)
+    joint2g = torch.clamp(joint2, 0, No - 1)   # gather-safe (pads hit zero blocks)
+    feat_ids = torch.full((P, No + 1), -1, dtype=types.INDEX, device=dev)
+    feat_ids[:, :N1] = end.feat_ids
+    feat_ids.scatter_(1, joint2, cur.feat_ids)    # slot No is the drop slot
+
+    U = torch.cat([endU, curU], dim=1)
+    Uij = torch.cat([end.Uij, slot2(cur.Uij)], dim=1)
+    W = torch.cat([endW, curW], dim=1)
+    Wpf2 = torch.stack([slot2(cur.Wpf[..., 0]),
+                        joint2g.gather(1, cur.Wpf[..., 1])], dim=-1)
+    Wpf = torch.cat([end.Wpf, Wpf2], dim=1)
+    V = seg_sum(curV, joint2, No)
+    V[:, :N1] += endV
+
+    # ---- information vectors e = I x per map -----------------------------
+    eP1, eF1 = schur.info_vector(poses[0], end.feats, endU, end.Uij, endW,
+                                 end.Wpf, endV)
+    eP2, eF2 = schur.info_vector(poses[1], cur.feats, curU, cur.Uij, curW,
+                                 cur.Wpf, curV)
+    eP = place_eP(eP1, eP2)
+    eF = seg_sum(eF2, joint2, No)
+    eF[:, :N1] += eF1
+
+    xp, xf, res = _solve(cfg, U, Uij, W, Wpf, V, eP, eF, Mo, fixed, fixc,
+                         sign)
+    xp = xp.to(end.dtype)
+    count = lambda k: torch.full((P,), k, dtype=types.INDEX, device=dev)  # noqa: E731
+    out = types.LocalMap(
+        pose_ids=torch.cat([end.pose_ids, pose_ids2], dim=1), poses=xp,
+        feat_ids=feat_ids[:, :No], feats=xf.to(end.dtype),
+        U=U, Uij=Uij, W=W, Wpf=Wpf, V=V, n_poses=n_poses,
+        n_feats=end.n_feats + cur.n_feats - matched.sum(dim=1),
+        n_U=count(U.shape[1]), n_W=count(W.shape[1]), gauge=gauge)
+    return (out, res.to(xp.dtype)) if cfg.with_res else out
 
 
 @segment.planned()
@@ -111,91 +216,15 @@ def join_stereo(end: types.LocalMap, cur: types.LocalMap,
     """Fuse the lanes of two stacked stereo maps sharing the same gauge.
     K3's plans are kept for the join (`segment.planned`): the solve sums
     over the same index lists in every sweep."""
-    P = end.poses.shape[0]
-    M1, N1, N2 = end.M, end.N, cur.N
-    Mo, No = M1 + cur.M, N1 + N2
-    dev = end.poses.device
-
-    joint2, matched = _match_features(end.feat_ids, end.feat_mask(),
-                                      cur.feat_ids, cur.feat_mask(),
-                                      end.n_feats, No)
-    ncom = matched.sum(dim=1)
-    joint2g = torch.clamp(joint2, 0, No - 1)   # gather-safe (pads hit zero blocks)
-
-    # ---- states & ids ------------------------------------------------------
-    pose_ids = torch.cat([end.pose_ids, cur.pose_ids], dim=1)
-    feat_ids = torch.full((P, No + 1), -1, dtype=types.INDEX, device=dev)
-    feat_ids[:, :N1] = end.feat_ids
-    feat_ids.scatter_(1, joint2, cur.feat_ids)    # slot No is the drop slot
-    feat_ids = feat_ids[:, :No]
-
-    # ---- information blocks ------------------------------------------------
     idt = types.as_dtype(cfg.info_dtype) or end.U.dtype
-    endU, endW, endV = end.U.to(idt), end.W.to(idt), end.V.to(idt)
-    curU, curW, curV = cur.U.to(idt), cur.W.to(idt), cur.V.to(idt)
-    U = torch.cat([endU, curU], dim=1)
-    Uij = torch.cat([end.Uij, cur.Uij + M1], dim=1)
-    W = torch.cat([endW, curW], dim=1)
-    Wpf2 = torch.stack([cur.Wpf[..., 0] + M1,
-                        joint2g.gather(1, cur.Wpf[..., 1])], dim=-1)
-    Wpf = torch.cat([end.Wpf, Wpf2], dim=1)
-    V = seg_sum(curV, joint2, No)
-    V[:, :N1] += endV
-
-    # ---- information vectors e = I x per map -----------------------------
-    eP1, eF1 = schur.info_vector(end.poses, end.feats, endU, end.Uij, endW,
-                                 end.Wpf, endV)
-    eP2, eF2 = schur.info_vector(cur.poses, cur.feats, curU, cur.Uij, curW,
-                                 cur.Wpf, curV)
-    eP = torch.cat([eP1, eP2], dim=1)
-    eF = seg_sum(eF2, joint2, No)
-    eF[:, :N1] += eF1
-
-    # ---- Schur + solve -----------------------------------------------------
     pose_valid = torch.cat([end.pose_mask(), cur.pose_mask()], dim=1)
-    fixed = ~pose_valid.repeat_interleave(6, dim=1)
-    nan = torch.full((P,), torch.nan, dtype=eP.dtype, device=dev)
-    if cfg.mesh is not None and cfg.method in ("refine", "direct"):
-        if cfg.method == "refine":
-            # the production accuracy: the feature-sharded full-system PCG
-            xp, xf, res = shard_solve.sharded_full_mixed(
-                U, Uij, W, Wpf, V, eP, eF, Mo, fixed, mesh=cfg.mesh,
-                axis=cfg.mesh_axis, iters=cfg.refine_iters,
-                escalate_iters=cfg.escalate_iters,
-                escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
-        else:
-            xp, xf = shard_solve.sharded_schur_solve(
-                U, Uij, W, Wpf, V, eP, eF, Mo, cfg.max_obs, cfg.mesh,
-                axis=cfg.mesh_axis, fixed_mask=fixed, method=cfg.method,
-                refine_iters=cfg.refine_iters)
-            res = nan
-    elif cfg.method == "refine":
-        xp, xf, res = schur.solve_full_mixed(
-            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
-            force_dense=cfg.dense_schur, iters=cfg.refine_iters,
-            escalate_iters=cfg.escalate_iters, escalate_tol=cfg.escalate_tol,
-            exit_tol=cfg.exit_tol)
-    elif cfg.method == "direct":
-        Vinv, S, E = _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo, cfg)
-        xp = solve.solve_reduced(S, E, fixed_mask=fixed, method=cfg.method,
-                                 refine_iters=cfg.refine_iters
-                                 ).reshape(P, Mo, 6)
-        xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
-        res = nan
-    else:
-        raise ValueError(f"unknown join method {cfg.method!r}")
-    xp = xp.to(end.dtype)
-    xf = xf.to(end.dtype)
-
-    count = lambda k: torch.full((P,), k, dtype=types.INDEX, device=dev)  # noqa: E731
-    out = types.LocalMap(
-        pose_ids=pose_ids, poses=xp, feat_ids=feat_ids, feats=xf,
-        U=U, Uij=Uij, W=W, Wpf=Wpf, V=V,
-        n_poses=end.n_poses + cur.n_poses,
-        n_feats=end.n_feats + cur.n_feats - ncom,
-        n_U=count(U.shape[1]), n_W=count(W.shape[1]),
-        gauge=dataclasses.replace(end.gauge, ref=cur.gauge.ref))
-    return (out, res.to(xp.dtype)) if cfg.with_res else out
+    return _fuse(
+        end, cur, cfg,
+        (end.U.to(idt), end.W.to(idt), cur.U.to(idt), cur.W.to(idt)),
+        (end.poses, cur.poses), lambda s: s + end.M,
+        lambda eP1, eP2: torch.cat([eP1, eP2], dim=1), cur.pose_ids,
+        ~pose_valid.repeat_interleave(6, dim=1), end.n_poses + cur.n_poses,
+        dataclasses.replace(end.gauge, ref=cur.gauge.ref))
 
 
 @segment.planned()
@@ -213,8 +242,8 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
     (`utils/metrics`).
     """
     P = end.poses.shape[0]
-    M1, M2, N1, N2 = end.M, cur.M, end.N, cur.N
-    Mo, No = M1 + M2, N1 + N2
+    M1, M2 = end.M, cur.M
+    Mo = M1 + M2
     dev = end.poses.device
 
     pos1, pos2 = end.ref_slot(), end.scap_slot()
@@ -242,7 +271,6 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
                     torch.where(keep_w[..., None, None], lm.W.to(idt), 0.0))
         endU, endW = drop_ref(end, pos1)
         curU, curW = drop_ref(cur, cref)
-        endV, curV = end.V.to(idt), cur.V.to(idt)
 
         # ---- pose identification: cur's ref/scap -> end's slots -----------
         ar2 = torch.arange(M2, device=dev)
@@ -263,107 +291,18 @@ def join_mono(end: types.LocalMap, cur: types.LocalMap,
         fixed |= coord == fixc[:, None]               # the pinned scale coord
         sign = end.gauge.sign.to(idt)
 
-    # ---- feature matching --------------------------------------------------
-    joint2, matched = _match_features(end.feat_ids, end.feat_mask(),
-                                      cur.feat_ids, cur.feat_mask(),
-                                      end.n_feats, No)
-    ncom = matched.sum(dim=1)
-    joint2g = torch.clamp(joint2, 0, No - 1)   # gather-safe
+    def place_eP(eP1, eP2):
+        # cur's ref and scap rows add into end's slots
+        eP = seg_sum(eP2, slotmap2, Mo)
+        eP[:, :M1] += eP1
+        return eP
 
-    # ---- ids ---------------------------------------------------------------
-    # cur's ref/scap slots become dead
-    pose_ids = torch.cat([end.pose_ids, torch.where(dead2, -1, cur.pose_ids)],
-                         dim=1)
-    feat_ids = torch.full((P, No + 1), -1, dtype=types.INDEX, device=dev)
-    feat_ids[:, :N1] = end.feat_ids
-    feat_ids.scatter_(1, joint2, cur.feat_ids)    # slot No is the drop slot
-    feat_ids = feat_ids[:, :No]
-
-    # ---- information blocks ------------------------------------------------
-    U = torch.cat([endU, curU], dim=1)
-    Uij2 = slotmap2.gather(1, cur.Uij.reshape(P, -1)).reshape(cur.Uij.shape)
-    Uij = torch.cat([end.Uij, Uij2], dim=1)
-    W = torch.cat([endW, curW], dim=1)
-    Wpf2 = torch.stack([slotmap2.gather(1, cur.Wpf[..., 0]),
-                        joint2g.gather(1, cur.Wpf[..., 1])], dim=-1)
-    Wpf = torch.cat([end.Wpf, Wpf2], dim=1)
-    V = seg_sum(curV, joint2, No)
-    V[:, :N1] += endV
-
-    # ---- information vectors (after the drop and the wraparound) ----------
-    eP1, eF1 = schur.info_vector(end_poses, end.feats, endU, end.Uij, endW,
-                                 end.Wpf, endV)
-    eP2, eF2 = schur.info_vector(cur_poses, cur.feats, curU, cur.Uij, curW,
-                                 cur.Wpf, curV)
-    # cur's ref and scap rows add into end's slots
-    eP = seg_sum(eP2, slotmap2, Mo)
-    eP[:, :M1] += eP1
-    eF = seg_sum(eF2, joint2, No)
-    eF[:, :N1] += eF1
-
-    # ---- Schur + gauge-masked solve ----------------------------------------
-    nan = torch.full((P,), torch.nan, dtype=eP.dtype, device=dev)
-
-    known = (cfg.method in ("direct", "refine")
-             and cfg.pin in ("sign", "zero"))
-    if cfg.mesh is not None and known:
-        if cfg.method == "refine" and cfg.pin == "sign":
-            xp, xf, res = shard_solve.sharded_full_mixed(
-                U, Uij, W, Wpf, V, eP, eF, Mo, fixed, mesh=cfg.mesh,
-                axis=cfg.mesh_axis, iters=cfg.refine_iters, fixc=fixc,
-                sign=sign, escalate_iters=cfg.escalate_iters,
-                escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
-        else:
-            # as the reference: with gauge-conditioned inputs the pinned
-            # coordinate carries no information, so the right-hand side
-            # needs no correction; the pin is written back after the
-            # back-substitution
-            xp, xf = shard_solve.sharded_schur_solve(
-                U, Uij, W, Wpf, V, eP, eF, Mo, cfg.max_obs, cfg.mesh,
-                axis=cfg.mesh_axis, fixed_mask=fixed, method=cfg.method,
-                refine_iters=cfg.refine_iters)
-            xp = schur.pin_coordinate(xp, fixc, sign)
-            res = nan
-    elif cfg.method == "refine" and cfg.pin == "sign":
-        xp, xf, res = schur.solve_full_mixed(
-            U, Uij, W, Wpf, V, eP, eF, Mo, fixed, max_obs=cfg.max_obs,
-            force_dense=cfg.dense_schur, iters=cfg.refine_iters,
-            fixc=fixc, sign=sign, escalate_iters=cfg.escalate_iters,
-            escalate_tol=cfg.escalate_tol, exit_tol=cfg.exit_tol)
-    elif known:
-        # direct, or refine with pin "zero" (the reduced system's f32
-        # factor with refinement sweeps, as the reference)
-        Vinv, S, E = _reduced_system(U, Uij, W, Wpf, V, eP, eF, Mo, cfg)
-        if cfg.pin == "sign":
-            E = E - S[torch.arange(P, device=dev), :, fixc] * sign[:, None]
-        xp = solve.solve_reduced(S, E, fixed_mask=fixed, method=cfg.method,
-                                 refine_iters=cfg.refine_iters
-                                 ).reshape(P, Mo, 6)
-        if cfg.pin == "sign":
-            # exact constrained fusion: back-substitute with the pinned
-            # coordinate at its value
-            xp = schur.pin_coordinate(xp, fixc, sign)
-            xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
-        else:
-            # the reference C++ order: back-substitute with the pinned
-            # coordinate still at 0, set it to sign afterwards
-            xf = schur.backsub_features(W, Wpf, Vinv, eF, xp)
-            xp = schur.pin_coordinate(xp, fixc, sign)
-        res = nan
-    else:
-        raise ValueError(f"join_mono: no solve for method={cfg.method!r}, "
-                         f"pin={cfg.pin!r}")
-    xp = xp.to(end.dtype)
-    xf = xf.to(end.dtype)
-
-    count = lambda k: torch.full((P,), k, dtype=types.INDEX, device=dev)  # noqa: E731
-    out = types.LocalMap(
-        pose_ids=pose_ids, poses=xp, feat_ids=feat_ids, feats=xf,
-        U=U, Uij=Uij, W=W, Wpf=Wpf, V=V,
-        n_poses=end.n_poses + cur.n_poses - 2,
-        n_feats=end.n_feats + cur.n_feats - ncom,
-        n_U=count(U.shape[1]), n_W=count(W.shape[1]),
+    return _fuse(
+        end, cur, cfg, (endU, endW, curU, curW), (end_poses, cur_poses),
+        lambda s: slotmap2.gather(1, s.reshape(P, -1)).reshape(s.shape),
+        place_eP, torch.where(dead2, -1, cur.pose_ids), fixed,
+        end.n_poses + cur.n_poses - 2,
         # gauge tags from cur, final-frame tags from end
-        gauge=dataclasses.replace(cur.gauge, fref=end.gauge.fref,
-                                  fscap=end.gauge.fscap, ffix=end.gauge.ffix))
-    return (out, res.to(xp.dtype)) if cfg.with_res else out
+        dataclasses.replace(cur.gauge, fref=end.gauge.fref,
+                            fscap=end.gauge.fscap, ffix=end.gauge.ffix),
+        fixc, sign)

@@ -18,8 +18,6 @@ nothing.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from ..utils import metrics
@@ -35,15 +33,6 @@ _DENSE_SCHUR_DIM = 1024
 # all lanes (288 MB in float64). The reference counts 2**16 blocks per lane
 # (a 6x6 block fills a whole TPU tile there); here a block is 36 values.
 _SCHUR_CHUNK_BLOCKS = 1 << 20
-
-
-def dense_w_bytes() -> int:
-    """Byte budget of one dense [6M, 3N] W/Y layout of `schur_stripes`;
-    above it the stripes cut the feature axis. Only `schur_stripes`'s
-    callers (`parallel/shard_solve`) read it: the joins' f32 assembly forms
-    no dense W/Y layout (kernel K4). Read at call time (env
-    LINEARSFM_DENSE_W_BYTES), default 512 MB as in the reference."""
-    return int(os.environ.get("LINEARSFM_DENSE_W_BYTES", 1 << 29))
 
 
 def bmv(a, v):
@@ -93,7 +82,7 @@ def info_vector(poses, feats, U, Uij, W, Wpf, V):
 # skipped): kernel K1 on a CUDA tensor, its plain version on the CPU. Unlike
 # the reference, whose TPU kernel is float32-only, float64 lists use it too.
 # densify_planned is K1 on a list sorted once (kernels.coo_plan), for lists
-# that are densified more than once or in column windows.
+# that are densified more than once.
 densify_blocks = kernels.blockcoo_to_dense
 densify_planned = kernels.blockcoo_to_dense_planned
 
@@ -168,37 +157,10 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
 
 def w_plan(W, Wpf, M: int, N: int) -> kernels.CooPlan:
     """K1's plan of a float32 W list, zero-valued entries to row -1 (they
-    leave the plan): K4 walks it, and Wd, Yd and every feature stripe of
-    `schur_stripes` densify this one sort."""
+    leave the plan): K4 walks it."""
     wp, wf = Wpf[..., 0], Wpf[..., 1]
     return kernels.coo_plan(torch.where((W != 0).any(dim=(-1, -2)), wp, -1),
                             wf, M, N)
-
-
-def schur_stripes(S, E, wplan, W, Yb, eF, M: int, lo: int = 0,
-                  width: int | None = None):
-    """S -= Yd Wd^T (in place) and E - Yd eF over the plan's feature columns
-    [lo, lo + width) (all N by default; past N the columns are empty), with
-    Wd and Yd densified by K1: all at once while a dense [6M, 3 width] f32
-    layout fits `dense_w_bytes()`, else in the fewest equal stripes that
-    do, so that at most two stripes are live. Returns the new E. The
-    feature-sharded solve (`parallel/shard_solve`) runs it on each shard's
-    window; the joins' float32 assembly runs kernel K4 instead."""
-    P, N = eF.shape[0], eF.shape[1]
-    width = N - lo if width is None else width
-    nch = -(-(6 * M * 3 * width * 4) // dense_w_bytes())
-    Nc = -(-width // max(nch, 1))
-    nch = -(-width // max(Nc, 1))
-    eFp = torch.nn.functional.pad(eF, (0, 0, 0, max(0, lo + Nc * nch - N)))
-    for c in range(nch):
-        a = lo + c * Nc
-        Wd = densify_planned(wplan, W, a, Nc)
-        Yd = densify_planned(wplan, Yb, a, Nc)
-        # in place: S is [12288, 12288] f32 (0.6 GB) at the 2,048-map root
-        S.baddbmm_(Yd, Wd.transpose(-1, -2), alpha=-1.0)
-        E = E - bmv(Yd, eFp[:, a:a + Nc].reshape(P, -1))
-        del Wd, Yd
-    return E
 
 
 def group_by_feature(Wpf, N: int, max_obs: int, entry_valid=None):

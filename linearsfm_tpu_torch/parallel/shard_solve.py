@@ -14,8 +14,9 @@ again.
 * `sharded_full_mixed`: the production root solve, the f32 Schur factor
   preconditioning the f64 PCG on the full information system, as
   `ops/schur.solve_full_mixed`. Each shard launches K2 once over its W
-  entries (V^-1 and Y = W V^-1[wf]) and K1 for its part of A and for Wd and
-  Yd, a column window of one plan of the W list; every PCG sweep sums the
+  entries (V^-1 and Y = W V^-1[wf]) and assembles its part of the f32
+  Schur matrix as the joins do (`schur.assemble_schur`, dense: K1 for A,
+  K4 on its own plan of the W entries it owns); every PCG sweep sums the
   shards' parts of the matvec and of the preconditioner.
 
 Ownership, as the reference's: W entries belong to the shard that owns
@@ -113,8 +114,6 @@ def sharded_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask,
     if fixc is not None:
         fixc, sign = fixc.to(d0), sign.to(d0)
     V32, W32 = V.to(f32), W.to(f32)
-    # one sort of the W list; each shard densifies its own column window
-    wplan = schur.w_plan(W32, Wpf, M, N)
 
     shards = []   # each shard's masked lists, on its device
     e_parts = []
@@ -123,7 +122,6 @@ def sharded_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask,
         for d, dev in enumerate(mesh.devices):
             lo = d * Nl
             with mesh.on(d):
-                schur.require_full_f32(dev)
                 sh = dict(Uij=Uij.to(dev), Wpf=Wpf.to(dev))
                 own_w = ((wf >= lo) & (wf < lo + Nl)).to(dev)[..., None, None]
                 own_u = (torch.arange(KU, device=dev) % nd == d)[None, :,
@@ -136,16 +134,15 @@ def sharded_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask,
                 sh["W32"] = W32o
                 sh["U64"] = torch.where(own_u, U.to(dev), 0.0)
                 sh["W64"] = torch.where(own_w, W.to(dev), 0.0)
-                S = schur.dense_a32(torch.where(own_u, U.to(dev).to(f32), 0.0),
-                                    sh["Uij"], M)
-                plan = kernels.CooPlan(*(t.to(dev) for t in wplan[:5]),
-                                       wplan.M, wplan.N)
-                # S -= Yd Wd^T over the shard's window; -(Yd eF) summed
-                neg = schur.schur_stripes(
-                    S, S.new_zeros((1, 6 * M)), plan, W32.to(dev),
-                    sh["Y32"], eF.to(dev).to(f32), M, lo, Nl)
+                # the joins' dense f32 assembly of the shard's lists: A of
+                # its U entries less Y W^T over its W entries (K4 on their
+                # own plan, which the zeroed entries leave); from eP = 0,
+                # E = -(Y eF), summed
+                S, neg = schur.assemble_schur(
+                    torch.where(own_u, U.to(dev).to(f32), 0.0), sh["Uij"],
+                    W32o, sh["Wpf"], sh["Y32"], W32o.new_zeros((1, M, 6)),
+                    eF.to(dev).to(f32), M, 1, force_dense=True)
                 e_parts.append(-neg)
-                del plan, W32o
             shards.append(sh)
             yield S
 

@@ -757,9 +757,9 @@ def test_planned_kernel_tile_edges_on_cuda(case, dtype):
 
 @pytest.mark.cuda
 def test_planned_kernel_main_path_stripe_on_cuda():
-    """A root-sized stripe: 2,048 block rows, a 2,928-feature window of
-    11,712 columns (f32 rows of 35,136 bytes, 45.75 tiles wide), equal to
-    the plain version on the card (exact: no duplicate coordinates)."""
+    """A root-sized W list, whole: 2,048 block rows by 11,712 feature
+    columns (f32 rows of 140,544 bytes, 183 tiles wide), equal to the
+    plain version on the card (exact: no duplicate coordinates)."""
     _needs_card()
     g = torch.Generator(device="cuda").manual_seed(11)
     M, N, K = 2048, 11712, 60000
@@ -768,9 +768,8 @@ def test_planned_kernel_main_path_stripe_on_cuda():
     rows[:, ::17] = -1
     vals = torch.randn((1, K, 6, 3), generator=g, device="cuda")
     plan = kernels.coo_plan(rows, cols, M, N)
-    got = kernels.blockcoo_to_dense_planned(plan, vals, 2928, 2928)
-    want = kernels.blockcoo_to_dense_ref(
-        *_masked_stripe(rows, cols, 2928, 2928), vals, M, 2928)
+    got = kernels.blockcoo_to_dense_planned(plan, vals)
+    want = kernels.blockcoo_to_dense_ref(rows, cols, vals, M, N)
     assert torch.equal(got, want)
 
 
@@ -867,8 +866,9 @@ def test_pcg_preconditioner_float32_level_batch_on_cuda():
 @pytest.mark.cuda
 def test_sharded_full_mixed_on_cuda():
     """On the card, the feature-sharded PCG over four shards of one device
-    ("cuda:0" four times) launches K2 once and K1 three times (A, Wd, Yd)
-    per shard and agrees with the single-device solve to 1e-9."""
+    ("cuda:0" four times) launches K2, K1 (A) and K4 (the Schur product
+    of the shard's W entries) once per shard and agrees with the
+    single-device solve to 1e-9."""
     _needs_card()
     from linearsfm_tpu_torch.ops import schur
     from linearsfm_tpu_torch.parallel import mesh, shard_solve
@@ -898,7 +898,8 @@ def test_sharded_full_mixed_on_cuda():
     torch.cuda.synchronize()
     assert kernels.launches["inv3x3_sym"] - n0["inv3x3_sym"] == 4
     assert (kernels.launches["blockcoo_to_dense"]
-            - n0["blockcoo_to_dense"]) == 12
+            - n0["blockcoo_to_dense"]) == 4
+    assert kernels.launches["schur_pairs"] - n0["schur_pairs"] == 4
     want = schur.solve_full_mixed(*ops, M, fixed, force_dense=True,
                                   iters=16)
     torch.testing.assert_close(xp, want[0], atol=1e-9, rtol=0)

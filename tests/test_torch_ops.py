@@ -24,6 +24,7 @@ from linearsfm_tpu_torch.ops import congruence as tcong
 from linearsfm_tpu_torch.ops import kernels
 from linearsfm_tpu_torch.ops import rotations as trot
 from linearsfm_tpu_torch.ops import schur as tschur
+from linearsfm_tpu_torch.parallel.mesh import feature_window
 
 # one intra-op thread: the suite's workers share the machine's cores, and
 # an oversubscribed thread pool slows the trees' small ops many times over
@@ -234,8 +235,8 @@ def _schur_inputs(dtype):
     return U, Uij, W, Wpf, Vinv, eP, eF, M
 
 
-@pytest.mark.parametrize("mode", ["f32 single-shot", "f32 chunked", "f64",
-                                  "f32 fused Y", "f64 fused Y"])
+@pytest.mark.parametrize("mode", ["f32 single-shot", "f32 shard windows",
+                                  "f64", "f32 fused Y", "f64 fused Y"])
 def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
     """The reference forms Y = W Vinv[wf] from Vinv, the port takes Y. The
     first three modes give the port the einsum of the reference's own Vinv
@@ -245,15 +246,16 @@ def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
     the largest magnitude) — the port assembles A as D + D^T with a
     symmetrised diagonal and sums the block products of the W list (K4's
     plain version) where the reference multiplies dense layouts. "f32
-    chunked" holds the port's feature stripes (`schur.schur_stripes` over
-    `dense_a32`, which the feature-sharded solve runs) against the
-    reference's chunked assembly. float64: 1e-12."""
+    shard windows" holds the feature-sharded solve's assembly
+    (`parallel/shard_solve.sharded_full_mixed`: per shard the dense f32
+    assembly of its U entries and of the W entries of its feature window,
+    A through K1 and the product through K4, from eP = 0; the shards'
+    parts summed) over 3 shards against the reference's chunked assembly
+    (~3 feature stripes). float64: 1e-12."""
     dtype = np.float64 if mode.startswith("f64") else np.float32
     U, Uij, W, Wpf, Vinv, eP, eF, M = _schur_inputs(dtype)
-    if mode == "f32 chunked":    # ~3 feature stripes in both packages
-        budget = 6 * M * 3 * 8 * 4
-        monkeypatch.setattr(jschur, "_DENSE_W_BYTES", budget)
-        monkeypatch.setenv("LINEARSFM_DENSE_W_BYTES", str(budget))
+    if mode == "f32 shard windows":
+        monkeypatch.setattr(jschur, "_DENSE_W_BYTES", 6 * M * 3 * 8 * 4)
     if mode.endswith("fused Y"):
         A = np.random.default_rng(78).standard_normal((Vinv.shape[0], 3, 3))
         V = (A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(3)).astype(dtype)
@@ -263,12 +265,21 @@ def test_assemble_schur_dense_matches_reference(mode, monkeypatch):
         Y = lane(np.einsum("kiz,kzf->kif", W, Vinv[Wpf[:, 1]]))
     S_j, E_j = jschur._assemble_schur_dense(
         *(jnp.asarray(a) for a in (U, Uij, W, Wpf, Vinv, eP, eF)), M)
-    if mode == "f32 chunked":
-        Wt, Wpft = lane(W), lane(Wpf, torch.int64)
-        S_t = tschur.dense_a32(lane(U), lane(Uij, torch.int64), M)
-        E_t = tschur.schur_stripes(
-            S_t, lane(eP).reshape(1, -1),
-            tschur.w_plan(Wt, Wpft, M, eF.shape[0]), Wt, Y, lane(eF), M)
+    if mode == "f32 shard windows":
+        nd, N = 3, eF.shape[0]
+        Nl = feature_window(N, nd)
+        Wpft, Uijt = lane(Wpf, torch.int64), lane(Uij, torch.int64)
+        S_t, negE = 0, 0
+        for d in range(nd):
+            own_w = (Wpft[..., 1] >= d * Nl) & (Wpft[..., 1] < d * Nl + Nl)
+            Wo = torch.where(own_w[..., None, None], lane(W), 0.0)
+            own_u = torch.arange(U.shape[0]) % nd == d
+            S_d, E_d = tschur.assemble_schur(
+                torch.where(own_u[:, None, None], lane(U), 0.0), Uijt, Wo,
+                Wpft, Y, torch.zeros((1, M, 6)), lane(eF), M, 1,
+                force_dense=True)
+            S_t, negE = S_t + S_d, negE + (-E_d)
+        E_t = lane(eP).reshape(1, -1) - negE
     else:
         S_t, E_t = tschur._assemble_schur_dense(
             lane(U), lane(Uij, torch.int64), lane(W), lane(Wpf, torch.int64),

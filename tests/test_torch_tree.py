@@ -115,6 +115,106 @@ def test_join_stereo_default_config_is_direct(form, monkeypatch):
     np.testing.assert_allclose(got.feats, np.asarray(want.feats), atol=1e-9)
 
 
+def _mono_pair():
+    """Two mono maps in one gauge (ref 0, scap 1, fix 2) with shared
+    features, b's other poses renamed."""
+    rng = np.random.default_rng(12)
+    a = H.random_mono_map(rng, M=4, N=6, pose_id0=0, feat_id0=1000, fix=2)
+    b = H.random_mono_map(rng, M=4, N=6, pose_id0=0, feat_id0=1003, fix=2)
+    b = dataclasses.replace(b, pose_ids=jax.numpy.asarray(
+        np.array([0, 1, 12, 13]), jax.numpy.int32))
+    return a, b
+
+
+# (datatype, method, pin, mesh) -> the solver calls of one join, in order:
+# (solver, pinned or the reduced solve's method), then "backsub" and "pin"
+# where the join back-substitutes and writes the mono pin
+JOIN_ROUTES = {
+    ("stereo", "refine", "sign", False): [("solve_full_mixed", False)],
+    ("stereo", "refine", "sign", True): [("sharded_full_mixed", False)],
+    ("stereo", "direct", "sign", False): [("solve_reduced", "direct"),
+                                          "backsub"],
+    ("stereo", "direct", "sign", True): [("sharded_schur_solve", "direct")],
+    ("stereo", "refine", "other", False): [("solve_full_mixed", False)],
+    ("stereo", "other", "sign", False): ValueError,
+    ("mono", "refine", "sign", False): [("solve_full_mixed", True)],
+    ("mono", "refine", "sign", True): [("sharded_full_mixed", True)],
+    ("mono", "refine", "zero", False): [("solve_reduced", "refine"),
+                                        "backsub", "pin"],
+    ("mono", "refine", "zero", True): [("sharded_schur_solve", "refine"),
+                                       "pin"],
+    ("mono", "direct", "sign", False): [("solve_reduced", "direct"), "pin",
+                                        "backsub"],
+    ("mono", "direct", "sign", True): [("sharded_schur_solve", "direct"),
+                                       "pin"],
+    ("mono", "direct", "zero", False): [("solve_reduced", "direct"),
+                                        "backsub", "pin"],
+    ("mono", "direct", "zero", True): [("sharded_schur_solve", "direct"),
+                                       "pin"],
+    ("mono", "other", "sign", False): ValueError,
+    ("mono", "refine", "other", True): ValueError,
+}
+
+
+@pytest.mark.parametrize("route", list(JOIN_ROUTES),
+                         ids=lambda r: f"{r[0]} {r[1]} pin {r[2]} "
+                                       f"{'mesh' if r[3] else 'no mesh'}")
+def test_join_routes(route, monkeypatch):
+    """Both joins' one router: each (mesh, method, pin) reaches its solver,
+    the PCG gets the mono pin (fixc, sign) and stereo none, the pin of
+    mono "sign" is written before the back-substitution and that of pin
+    "zero" and of the mesh after; an unknown method or mono pin raises
+    (stereo has no pin to check). The solvers are recording stand-ins
+    that return zeros of the right shapes; the assembly, the
+    back-substitution and the pin are the port's."""
+    from linearsfm_tpu_torch.ops import solve as tsolve
+    from linearsfm_tpu_torch.parallel import shard_solve as tshard
+    datatype, method, pin, mesh = route
+    a, b = _stereo_pair() if datatype == "stereo" else _mono_pair()
+    calls = []
+
+    def pcg(name):
+        def fake(U, Uij, W, Wpf, V, eP, eF, M, fixed_mask, *a, **k):
+            calls.append((name, k.get("fixc") is not None))
+            return (eP.new_zeros((1, M, 6)), torch.zeros_like(eF),
+                    eP.new_zeros((1,)))
+        return fake
+
+    def sharded_schur_solve(U, Uij, W, Wpf, V, eP, eF, M, *a, **k):
+        calls.append(("sharded_schur_solve", k["method"]))
+        return eP.new_zeros((1, M, 6)), torch.zeros_like(eF)
+
+    def solve_reduced(S, E, **k):
+        calls.append(("solve_reduced", k["method"]))
+        return torch.zeros_like(E)
+
+    def recorded(name, fn):
+        return lambda *a, **k: calls.append(name) or fn(*a, **k)
+    monkeypatch.setattr(tschur, "solve_full_mixed", pcg("solve_full_mixed"))
+    monkeypatch.setattr(tshard, "sharded_full_mixed",
+                        pcg("sharded_full_mixed"))
+    monkeypatch.setattr(tshard, "sharded_schur_solve", sharded_schur_solve)
+    monkeypatch.setattr(tsolve, "solve_reduced", solve_reduced)
+    monkeypatch.setattr(tschur, "backsub_features",
+                        recorded("backsub", tschur.backsub_features))
+    monkeypatch.setattr(tschur, "pin_coordinate",
+                        recorded("pin", tschur.pin_coordinate))
+    cfg = tjoin.JoinConfig(method=method, pin=pin, max_obs=8,
+                           mesh=object() if mesh else None)
+    join = tjoin.join_stereo if datatype == "stereo" else tjoin.join_mono
+    want = JOIN_ROUTES[route]
+    if want is ValueError:
+        with pytest.raises(ValueError, match="no join solve"):
+            join(one_lane(a), one_lane(b), cfg)
+        assert not calls
+        return
+    out = join(one_lane(a), one_lane(b), cfg)
+    assert calls == want
+    if "pin" in want:
+        fixc = int(6 * out.scap_slot()[0] + out.gauge.fix[0])
+        assert float(out.poses.reshape(-1)[fixc]) == float(b.gauge.sign)
+
+
 @pytest.mark.parametrize("name", ["float32", "float64"])
 def test_info_dtype_name_equals_torch_dtype(name):
     """`JoinConfig(info_dtype="float32")`, the JAX package's form, gives
