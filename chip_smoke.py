@@ -64,6 +64,13 @@ Phases, each printing its lines; any failure exits non-zero:
 5. small trees solved on the GPU and on the CPU, by "refine" and by
    "direct" (K1 and K2 in float64): 13 stereo maps and 11 mono maps; poses
    agree to atol 1e-9;
+5b. K5 (`phase_k5`, after phases 6-7): the first set (seed 0) of the
+   benchmark's `rs468_mono.covis` (direct mono) and `nc3500_stereo.covis`
+   (stereo refine) through `DeviceTreeSolver`, every K5 call held against
+   the plain transform in situ (`_K5InSitu`: each float field within 1e-10
+   (float64) / 1e-5 (float32) of its largest magnitude, indices, ids and
+   gauge tags equal), then the level-1 and root calls timed alone with
+   CUDA events beside the byte bound and the plain transform;
 6. the stereo main path: the 2,048-map stereo loop-closure set (seed 7,
    noise 0.005, covis radius 6, at most 6 co-visible features per map; made
    with its plan before phase 3) through `DeviceTreeSolver("stereo",
@@ -71,7 +78,8 @@ Phases, each printing its lines; any failure exits non-zero:
    card by default), one warm run, with every K3 call and plan held
    against the plain version in situ (`_K3InSitu`) and every K4 call
    (`_K4InSitu`: the refine joins' float32 Schur complement from the W
-   block list, `torch.equal` on S and E), and one timed run.
+   block list, `torch.equal` on S and E) and every K5 call
+   (`_K5InSitu`), and one timed run.
    Fails unless the root lies on cuda:0, every pose id 1..2,048 is there
    and finite, the ATE is within
    1e-6 of the oracle's 0.009758730, every level's PCG residual is <= 1e-10,
@@ -210,13 +218,15 @@ The warm run checks
 that K2 ran at the shapes phase 4 timed.
 The CLI runs report their own counts (pipeline log); the host run's are
 set to 0 before `cli.main` and read after it. Every path must launch K1
-and K2; K3 must launch on every path of the device and host executors,
-which sum in the fixed order, and on no path of the dense executor
-(phase 10, 12's dense runs, the bench's dense stereo). The line before the last is the
+and K2; K3 and K5 must launch on every path of the device and host
+executors, which sum in the fixed order and transform on the card, and on
+no path of the dense executor (phase 10, 12's dense runs, the bench's dense
+stereo). 11b and 12a's held run also hold every K5 call in situ. The line before the last is the
 kernel record (per kernel: launches, max error, kernel, plain, bound and
 library times and what the library yardstick is; K1 at the root stripe,
 K2 fused at the stereo root in float32, K3 at the direct mono root in
-float64, with its chain floor, K4 at the stereo 3,499 root); the last
+float64, with its chain floor, K4 at the stereo 3,499 root, K5 at the
+NC3500 set's root call); the last
 line is {"ok": true, "device":
 {...}}.
 """
@@ -263,17 +273,22 @@ PATH_KERNELS = ("blockcoo_to_dense", "inv3x3_sym")
 K3 = "seg_sum_fixed"
 # K4 runs in every refine join's float32 assembly
 K4 = "schur_pairs"
+# K5 runs every gauge transform of the device and host executors
+K5 = "gauge_congruence"
 
 
 def _require_launched(tag, counts, dense=False):
-    """Fails unless K1 and K2 launched in `counts`, and K3 too unless the
-    path is the dense executor's, where K3 must not have launched."""
-    for k in PATH_KERNELS + (() if dense else (K3,)):
+    """Fails unless K1 and K2 launched in `counts`, and K3 and K5 too
+    unless the path is the dense executor's, where K3 and K5 must not have
+    launched (it sums without the fixed-order scope and transforms in its
+    own dense form)."""
+    for k in PATH_KERNELS + (() if dense else (K3, K5)):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"{tag}: kernel {k} was never launched")
-    if dense and counts.get(K3, 0):
-        raise AssertionError(f"{tag}: K3 launched {counts[K3]} times on the "
-                             f"dense executor")
+    for k in (K3, K5) if dense else ():
+        if counts.get(k, 0):
+            raise AssertionError(f"{tag}: {k} launched {counts[k]} times on "
+                                 f"the dense executor")
 
 
 # `common.pose_digest` of a path's run, by tag, for phase 13's bench
@@ -1343,6 +1358,173 @@ def _k4_work(plan):
 # K4's root launch timed by `_K4InSitu.time_root`, by run tag
 K4_TIMES = {}
 
+# K5 against the plain transform in situ: |kernel - plain| <= tol x the
+# plain field's largest magnitude (the reasons: tests/test_torch_kernels.py,
+# K5_TOL)
+K5_TOL = {"torch.float64": 1e-10, "torch.float32": 1e-5}
+
+
+def _k5_err(tag, got, want):
+    """The largest relative difference of K5's map `got` from the plain
+    version's `want` over the float fields (each over that field's largest
+    magnitude); fails on a shape, dtype, index, id or gauge tag that
+    differs, on a non-finite value, or past K5_TOL."""
+    import torch
+    from linearsfm_tpu_torch import types
+    worst = 0.0
+    pairs = [(f, getattr(got, f), getattr(want, f)) for f in types.MAP_FIELDS]
+    pairs += [(f"gauge.{f}", getattr(got.gauge, f), getattr(want.gauge, f))
+              for f in types.GAUGE_FIELDS]
+    for f, a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{tag}: {f} {list(a.shape)} {a.dtype}, "
+                                 f"plain {list(b.shape)} {b.dtype}")
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: {f} differs from the plain "
+                                     f"version's")
+            continue
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{tag}: {f} not finite")
+        if not b.numel():
+            continue
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max()) / scale if scale else float(
+            (a - b).abs().max())
+        if not err <= K5_TOL[str(a.dtype)]:
+            raise AssertionError(f"{tag}: {f} off the plain version by "
+                                 f"{err:.3e} of its largest magnitude")
+        worst = max(worst, err)
+    return worst
+
+
+class _K5InSitu:
+    """While active, every K5 call (`kernels.gauge_congruence`, which
+    `congruence.transform_map_*` call) is held against the plain transform
+    (`transform_map_*_ref`, on the card) on its own inputs (`_k5_err`).
+    The plain transform's own K3 launches are taken back out of
+    `kernels.launches`, so a held run counts the path's launches alone.
+    Counts the calls and those on one lane, and keeps the inputs of the
+    first call (level 1's) and of the last call on one lane (the root's)
+    for `time_calls`."""
+    worst = 0.0   # the largest relative difference held in this process
+
+    def __enter__(self):
+        from linearsfm_tpu_torch.ops import congruence, kernels
+        self.calls, self.root, self.kept = 0, 0, {}
+        self._saved = fn = kernels.gauge_congruence
+        self._refs = {False: congruence.transform_map_stereo_ref,
+                      True: congruence.transform_map_mono_ref}
+
+        def held(lm, mono, new, info_dtype=None):
+            got = fn(lm, mono, new, info_dtype)
+            counts = dict(kernels.launches)
+            want = self._refs[mono](lm, *new, info_dtype)
+            kernels.launches.update(counts)
+            err = _k5_err(f"K5 in situ {list(lm.U.shape[:2])}", got, want)
+            _K5InSitu.worst = max(_K5InSitu.worst, err)
+            self.calls += 1
+            call = (lm, mono, new, info_dtype)
+            self.kept.setdefault("level 1", call)
+            if lm.poses.shape[0] == 1:
+                self.root += 1
+                self.kept["root"] = call
+            return got
+        kernels.gauge_congruence = held
+        return self
+
+    def __exit__(self, *exc):
+        from linearsfm_tpu_torch.ops import kernels
+        kernels.gauge_congruence = self._saved
+        return False
+
+    def report(self, tag):
+        """One line of what was held; fails unless calls were held at the
+        root."""
+        print(f"{tag}: every K5 call held against the plain transform in "
+              f"situ (float64 within {K5_TOL['torch.float64']:g}, float32 "
+              f"{K5_TOL['torch.float32']:g} of each field's largest "
+              f"magnitude; worst so far {_K5InSitu.worst:.3e}): "
+              f"{self.calls} calls, {self.root} on one lane ok", flush=True)
+        if not self.root:
+            raise AssertionError(f"{tag}: no K5 call held at the root")
+
+    def time_calls(self, tag, reps=10):
+        """The kept calls timed again (CUDA events around one call, the
+        host's issue included; median of `reps` after one warm call), beside
+        the byte bound (`kernels.gauge_congruence_bytes` over 3.35 TB/s) and
+        the plain transform's time. Returns {where: times}."""
+        import statistics
+        import torch
+        from linearsfm_tpu_torch import types
+        from linearsfm_tpu_torch.ops import kernels, segment
+
+        def timed(fn, n):
+            ts = []
+            for _ in range(n + 1):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+            return statistics.median(ts[1:])
+        out = {}
+        for where, (lm, mono, new, info) in self.kept.items():
+            P, M, N, KU, KW = (lm.poses.shape[0], lm.M, lm.N, lm.KU, lm.KW)
+            esz = (types.as_dtype(info) or lm.U.dtype).itemsize
+            bound = (kernels.gauge_congruence_bytes(P, M, N, KU, KW, mono,
+                                                    esz)
+                     / HBM_BYTES_PER_S * 1e3)
+            with segment.deterministic():
+                ms = timed(lambda: self._saved(lm, mono, new, info), reps)
+                plain_ms = timed(lambda: self._refs[mono](lm, *new, info), 3)
+            print(f"{tag} {where}: K5 (P, M, N, KU, KW) ({P}, {M}, {N}, "
+                  f"{KU}, {KW}) {'mono' if mono else 'stereo'}: {ms:.4f} ms "
+                  f"a call vs byte bound {bound:.4f} ms = {bound / ms:.1%}; "
+                  f"plain transform {plain_ms:.3f} ms", flush=True)
+            out[where] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by="bytes", library_ms=None,
+                              shape=[P, M, N, KU, KW])
+        return out
+
+
+# K5's times at the benchmark cells' level-1 and root calls, by cell
+K5_TIMES = {}
+
+
+def phase_k5():
+    """Phase 5b, K5 in the benchmark's cells: the first set (seed 0) of
+    `rs468_mono.covis` (direct mono) and of `nc3500_stereo.covis` through
+    `DeviceTreeSolver` as the benchmark builds it, every K5 call held
+    against the plain transform in situ (`_K5InSitu`), then K5's level-1
+    and root calls timed alone (`_K5InSitu.time_calls`). Returns each
+    solve's kernel launches."""
+    from benchmark import gen
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    launched = {}
+    with open(os.path.join(HERE, "benchmark", "traffic", "covis.json")) as f:
+        mix = json.load(f)
+    for cell in ("rs468_mono", "nc3500_stereo"):
+        with open(os.path.join(HERE, "benchmark", "configs",
+                               f"{cell}.json")) as f:
+            cfg = json.load(f)
+        maps = gen.make_set(cfg, mix, 0, 0)
+        solver = DeviceTreeSolver(cfg["datatype"], method=cfg["method"])
+        with _K5InSitu() as k5:
+            _, launched[f"k5 {cell}"], wall = _counted(
+                lambda: solver.run(maps))
+        k5.report(f"k5 {cell} ({wall:.2f} s held)")
+        K5_TIMES[cell] = k5.time_calls(f"k5 {cell}")
+        if launched[f"k5 {cell}"].get(K5, 0) != k5.calls:
+            raise AssertionError(f"k5 {cell}: {k5.calls} calls held, "
+                                 f"{launched[f'k5 {cell}'].get(K5)} counted")
+        _require_launched(f"k5 {cell}", launched[f"k5 {cell}"])
+        del k5, maps, solver
+    return launched
+
 
 def _k2_shapes(datasets):
     """The fused K2's (P, N, K) at level 1 and at the root of each path's
@@ -1413,7 +1595,7 @@ def make_dataset(datatype):
 
 def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
                     oracle=None, tag=None, in_situ=False, hold_k3=False,
-                    hold_k4=False):
+                    hold_k4=False, hold_k5=False):
     """One warm and one timed run of the `n`-map covis set (`tp`: its tree
     plan, or None); returns the kernel launch counts of the timed run, its
     poses by id and its maps_joined/s. Fails unless every pose id is there
@@ -1427,7 +1609,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
     of the root included; with `hold_k3`, every K3 call and plan of the
     warm run (`_K3InSitu`); with `hold_k4`, every K4 call of the warm run
     (`_K4InSitu`), and its root launch is timed alone into
-    `K4_TIMES[tag]`. Given `tp`, it also prints the `utils/flops`
+    `K4_TIMES[tag]`; with `hold_k5`, every K5 call of the warm run
+    (`_K5InSitu`). Given `tp`, it also prints the `utils/flops`
     model's f32 rate of the timed run (a model figure: the model's
     per-block constants are not calibrated on the GPU). The timed run's
     `common.pose_digest` goes to `DIGESTS[tag]`."""
@@ -1460,6 +1643,8 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
                 k3 = held.enter_context(_K3InSitu())
             if hold_k4:
                 k4 = held.enter_context(_K4InSitu())
+            if hold_k5:
+                k5 = held.enter_context(_K5InSitu())
             warm = solver.run(maps)
     finally:
         kernels.inv3x3_wy = fused
@@ -1473,6 +1658,9 @@ def phase_main_path(datatype, maps, poses_gt, tp, shapes, n=2048,
         k4.report(f"{tag} warm run")
         K4_TIMES[tag] = k4.time_root(f"{tag} warm run")
         del k4
+    if hold_k5:
+        k5.report(f"{tag} warm run")
+        del k5
     if in_situ:
         _held_at_root(f"{tag} warm run", k1, k2)
         if k2.shapes != seen:
@@ -2493,7 +2681,7 @@ def phase_tools(datasets):
           flush=True)
     launched["stereo 3499"], _, _ = phase_main_path(
         "stereo", maps, gt, None, None, n=3499, oracle=ORACLE_ATE_3499,
-        tag="scale stereo 3499", in_situ=True, hold_k4=True)
+        tag="scale stereo 3499", in_situ=True, hold_k4=True, hold_k5=True)
     del maps, gt
     t_b = time.perf_counter()
 
@@ -2586,7 +2774,7 @@ def _counted(fn):
 
 
 def _held_counted(tag, fn, k1_at_root=True, dense=False, hold_k3=True,
-                  add_ns=None):
+                  add_ns=None, hold_k5=False):
     """`_counted(fn)` with every K1, K2 and K3 call held against its plain
     version in situ (`_K1InSitu`, `_K2InSitu`, `_K3InSitu`): K2 and (given
     `k1_at_root`) K1 must have been held at the root; the dense executor
@@ -2595,13 +2783,17 @@ def _held_counted(tag, fn, k1_at_root=True, dense=False, hold_k3=True,
     `hold_k3` is False (its calls then run unheld: each held call costs a
     copy to the host and the CPU's sum); given `add_ns` (the add latencies
     by dtype), the run's K3 launch with the most values on one chain is
-    then held and timed (`_K3InSitu.time_worst`). The wall includes the
-    checks, not the timing."""
+    then held and timed (`_K3InSitu.time_worst`). With `hold_k5`, every K5
+    call too (`_K5InSitu`). The wall includes the checks, not the
+    timing."""
     with contextlib.ExitStack() as held:
         k1, k2 = (held.enter_context(_K1InSitu()),
                   held.enter_context(_K2InSitu()))
         k3 = held.enter_context(_K3InSitu()) if hold_k3 or dense else None
+        k5 = held.enter_context(_K5InSitu()) if hold_k5 else None
         got = _counted(fn)
+    if k5 is not None:
+        k5.report(tag)
     if dense:
         if k3.calls:
             raise AssertionError(f"{tag}: K3 ran on the dense executor "
@@ -2703,7 +2895,7 @@ def phase_call_forms(datasets, oracle512, add_ns):
         del out
     out, launched[tag], wall = _held_counted(f"{tag} in situ",
                                              lambda: solver.run(maps),
-                                             add_ns=add_ns)
+                                             add_ns=add_ns, hold_k5=True)
     check(f"{tag} in situ", out, mono_ids)
     pa = _poses_by_id(out)
     same = [torch.equal(runs[0][1], p) for p in (runs[1][1], out.poses)]
@@ -2713,6 +2905,9 @@ def phase_call_forms(datasets, oracle512, add_ns):
           flush=True)
     if not all(same):
         raise AssertionError(f"{tag}: the runs' poses differ")
+    if launched[tag] != counts:
+        raise AssertionError(f"{tag}: the in-situ run counted {launched[tag]}"
+                             f" launches, the plain runs {counts}")
     near_oracle(tag, _ate_of(pa, gt), oracle)
     DIGESTS[tag] = pose_digest(out)
     del runs, out, solver
@@ -3096,7 +3291,9 @@ def main() -> int:
     paths, single, rates = {}, {}, {}
     for d, (maps, gt, tp) in datasets.items():
         paths[d], single[d], rates[d] = phase_main_path(
-            d, maps, gt, tp, shapes, hold_k3=True, hold_k4=True)
+            d, maps, gt, tp, shapes, hold_k3=True, hold_k4=True,
+            hold_k5=True)
+    paths.update(phase_k5())
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as text_dir:
         launched, cli_poses = phase_entry_points(datasets, text_dir)
         paths.update(launched)
@@ -3153,7 +3350,18 @@ def main() -> int:
                note="the port's own kernel, no TPU kernel: the refine "
                     "preconditioner's f32 Schur complement from the W "
                     "block list, where the JAX package multiplies dense "
-                    "layouts; held exactly (torch.equal) in situ")
+                    "layouts; held exactly (torch.equal) in situ"),
+        record(K5, "linearsfm_tpu_torch/csrc/gauge_congruence.cu",
+               "linearsfm_tpu/ops/congruence.py:118", _K5InSitu.worst,
+               K5_TIMES["nc3500_stereo"]["root"],
+               "none: the plain transform (about 1,000-1,500 PyTorch "
+               "operations a call) is its yardstick",
+               times={c: t for c, t in K5_TIMES.items()},
+               note="the port's own kernel, no TPU kernel: the gauge "
+                    "transform and its congruence, where the JAX package "
+                    "takes jacfwd and array operations; held in situ "
+                    "within K5_TOL (max_abs_err: the largest relative "
+                    "difference held)")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,4 +156,22 @@ ROUTES = {
         "Y_f W_f^T, is K4 on the plan of the W entries it owns, as in the "
         "joins, where the JAX package multiplies dense layouts of the "
         "shard's W and Y windows; the summed S moves in its last bits"),
+    "ops.congruence.transform_map_stereo": (
+        "ops.kernels.gauge_congruence",
+        "on the card the transform is kernel K5: the Jacobian blocks come "
+        "from forward-mode dual numbers through the state map, not from "
+        "jacfwd's tangent rules, and the congruence's products and segment "
+        "sums run in another fixed order (each segment's terms in list "
+        "order, the (r, r) block as the sum of the segments' C_i^T m_i), "
+        "so the map moves in its last bits; on the CPU the port's plain "
+        "version `transform_map_stereo_ref`"),
+    "ops.congruence.transform_map_mono": (
+        "ops.kernels.gauge_congruence",
+        "as transform_map_stereo: kernel K5 on the card, the Jacobians "
+        "(folds and gauge projection included) from dual numbers and the "
+        "sums, (s, s) and (r, s) too, in another fixed order; the plain "
+        "version `transform_map_mono_ref` on the CPU. A pinned coordinate "
+        "new_fix outside 0-2 raises in the plain version (its gather) and "
+        "gives NaN states in that lane on the card, where a check would "
+        "cost a sync a call; no caller passes one"),
 }

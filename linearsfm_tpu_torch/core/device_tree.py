@@ -423,8 +423,9 @@ class DeviceTreeSolver:
         numbers) the host phases compact, plan, upload, levels (to the
         synchronise) and get [s], the self seconds of the spans in
         SELF_TIMED, and the solve's counts: pcg_sweeps, pcg_escalations,
-        syncs, k1/k2/k3/k4_launches (`kernels.launches`), k3_plans and
-        k3_plan_hits (`segment._plan`)."""
+        syncs, k1/k2/k3/k4/k5_launches (`kernels.launches`; K5: one per
+        gauge transform on the card), k3_plans and k3_plan_hits
+        (`segment._plan`)."""
         # the JAX package gives the same bits on every run, where the
         # card's atomic sums moved direct mono's poses by up to 1.1e-5 and
         # grid mono's by O(1) from run to run; the scope sums in list order
@@ -526,6 +527,8 @@ class DeviceTreeSolver:
             - launched["seg_sum_fixed"],
             k4_launches=kernels.launches["schur_pairs"]
             - launched["schur_pairs"],
+            k5_launches=kernels.launches["gauge_congruence"]
+            - launched["gauge_congruence"],
             k3_plans=n.get("k3_plans", 0),
             k3_plan_hits=n.get("k3_plan_hits", 0),
             get=time.perf_counter() - t4)

@@ -14,6 +14,11 @@ over the block lists, which emit new lists with scatter-add semantics:
 The reference's block products are broadcast-multiply-sums because f64 dot
 products demote on its TPU; here they are float64 matmuls (exact on a GPU).
 Every operand carries the leading lane dimension P.
+
+`transform_map_stereo` / `transform_map_mono` run kernel K5
+(`kernels.gauge_congruence`) on a CUDA map, a few launches a call; the
+plain versions `transform_map_stereo_ref` / `transform_map_mono_ref` below
+run on a CPU map.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from .. import types
 from . import gauge as G
-from . import segment
+from . import kernels, segment
 from .segment import put1, seg_sum, take, take1
 
 
@@ -131,8 +136,20 @@ def transform_map_stereo(lm: types.LocalMap, new_ref_id: torch.Tensor,
 
     info_dtype: dtype of the congruence products (the information path), a
     torch dtype or its name; the state and its Jacobians stay in the state
-    dtype.
+    dtype. Kernel K5 (`kernels.gauge_congruence`) on a CUDA map,
+    `transform_map_stereo_ref` on a CPU one.
     """
+    if lm.poses.device.type == "cpu":
+        return transform_map_stereo_ref(lm, new_ref_id, info_dtype)
+    return kernels.gauge_congruence(lm, False, (new_ref_id,), info_dtype)
+
+
+def transform_map_stereo_ref(lm: types.LocalMap, new_ref_id: torch.Tensor,
+                             info_dtype: torch.dtype | str | None = None
+                             ) -> types.LocalMap:
+    """Plain version of `transform_map_stereo` (and of K5's stereo form):
+    the state map, the Jacobian blocks from one jacfwd, the congruence's
+    block products and segment sums, the lists concatenated."""
     P, M, N = lm.poses.shape[0], lm.M, lm.N
     dev = lm.poses.device
     old_ref_id = lm.gauge.ref
@@ -235,8 +252,23 @@ def transform_map_mono(lm: types.LocalMap, new_ref_id: torch.Tensor,
     """Re-express each lane of `lm` in the mono gauge (`new_ref_id[p]`,
     `new_scap_id[p]`, `new_fix[p]`) and propagate its information matrix.
 
-    info_dtype: see transform_map_stereo.
+    info_dtype: see transform_map_stereo. Kernel K5
+    (`kernels.gauge_congruence`) on a CUDA map, `transform_map_mono_ref` on
+    a CPU one.
     """
+    if lm.poses.device.type == "cpu":
+        return transform_map_mono_ref(lm, new_ref_id, new_scap_id, new_fix,
+                                      info_dtype)
+    return kernels.gauge_congruence(lm, True, (new_ref_id, new_scap_id,
+                                               new_fix), info_dtype)
+
+
+def transform_map_mono_ref(lm: types.LocalMap, new_ref_id: torch.Tensor,
+                           new_scap_id: torch.Tensor, new_fix: torch.Tensor,
+                           info_dtype: torch.dtype | str | None = None
+                           ) -> types.LocalMap:
+    """Plain version of `transform_map_mono` (and of K5's mono form); see
+    `transform_map_stereo_ref`."""
     P, M, N = lm.poses.shape[0], lm.M, lm.N
     dev = lm.poses.device
     old = lm.gauge

@@ -23,6 +23,13 @@ forms the refine preconditioner's float32 Schur complement from the W
 block list, in a fixed order, where the JAX package densifies W and Y and
 multiplies the dense layouts (`ops/schur._assemble_schur_dense`).
 
+K5 `gauge_congruence` (`csrc/gauge_congruence.cu`) replaces no TPU kernel:
+the gauge transform of a stack of maps and the congruence of its
+information (`ops/congruence.transform_map_stereo` / `_mono`), where the
+JAX package, like the plain version, takes the Jacobians with jacfwd and
+forms the congruence as about a thousand array operations; the kernel's
+launches and one sort take their place (`gauge_congruence`).
+
 All sources are compiled with nvcc for sm_90a (one process per source, all
 started together) and linked into one shared library with a plain C
 interface, at first use, into `_build/` beside the package, and bound with
@@ -30,12 +37,14 @@ ctypes.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. `launches` counts kernel launches, and only
-those, so a run can show that it went through the kernels.
+those, so a run can show that it went through the kernels (K5: one per
+call, whatever number of launches it takes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import glob
 import hashlib
 import math
@@ -47,10 +56,11 @@ from typing import NamedTuple
 
 import torch
 
+from .. import types
 from .segment import lane_ids, take
 
 launches = {"blockcoo_to_dense": 0, "inv3x3_sym": 0, "seg_sum_fixed": 0,
-            "schur_pairs": 0}
+            "schur_pairs": 0, "gauge_congruence": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -135,6 +145,11 @@ def build() -> ctypes.CDLL:
     lib.schur_pairs_f32.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int64] * 3 + [ctypes.c_void_p]
     lib.schur_pairs_f32.restype = ctypes.c_int
+    lib.gauge_congruence_scratch.argtypes = [ctypes.c_void_p]
+    lib.gauge_congruence_scratch.restype = ctypes.c_int64
+    for fn in (lib.gauge_congruence_a, lib.gauge_congruence_b):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -732,3 +747,158 @@ def add_chain(x: torch.Tensor, n: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"add_chain: CUDA launch failed (error {err})")
     return out
+
+
+class _GcArgs(ctypes.Structure):
+    """K5's arguments, the layout of `GcArgs` in csrc/gauge_congruence.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "pose_ids", "poses", "feats", "U", "Uij", "W", "Wpf", "V", "ref",
+        "scap", "fix", "new_ref", "new_scap", "new_fix", "ids_out",
+        "poses_out", "feats_out", "U_out", "Uij_out", "W_out", "Wpf_out",
+        "V_out", "sign_out", "scratch", "keys", "skeys", "perm")] + [
+        (n, ctypes.c_int64) for n in ("P", "M", "N", "KU", "KW", "mono",
+                                      "f32")]
+
+
+def gauge_congruence_bytes(P: int, M: int, N: int, KU: int, KW: int,
+                           mono: bool, esz: int) -> int:
+    """The bytes one K5 call must move: the state, the block lists and
+    their indices read once, the new state, lists and indices written once
+    (esz: the information dtype's size; states and indices are 8 bytes)."""
+    XU, XW = (2 * M + 3, 2 * N) if mono else (M + 1, N)
+    state = P * (M * 6 + N * 3) * 8
+    lists = P * ((KU * 36 + KW * 18 + N * 9) * esz + (KU + KW) * 16)
+    new = P * (((KU + XU) * 36 + (KW + XW) * 18 + N * 9) * esz
+               + (KU + XU + KW + XW) * 16)
+    return 2 * state + lists + new + (0 if mono else 2 * P * M * 8)
+
+
+def _k5_check(lm: types.LocalMap, mono: bool, new: tuple,
+              idt: torch.dtype):
+    """Raise unless `lm` and the new gauge ids are K5's inputs: one CUDA
+    device, float64 state, float32/float64 information, int64 indices,
+    the LocalMap shapes, contiguous."""
+    name = f"gauge_congruence ({'mono' if mono else 'stereo'})"
+    dev = lm.poses.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    g = lm.gauge
+    ints = [lm.pose_ids, lm.Uij, lm.Wpf, g.ref, *new]
+    if mono:
+        ints += [g.scap, g.fix]
+    floats = [lm.U, lm.W, lm.V]
+    every = [lm.poses, lm.feats, *floats, *ints]
+    if any(not isinstance(t, torch.Tensor) or t.device != dev
+           for t in every):
+        raise ValueError(f"{name}: every input must be a tensor on {dev}")
+    if lm.poses.dtype != torch.float64 or lm.feats.dtype != torch.float64:
+        raise TypeError(f"{name}: float64 states only, got "
+                        f"{lm.poses.dtype}, {lm.feats.dtype}")
+    if idt not in (torch.float32, torch.float64) or any(
+            t.dtype not in (torch.float32, torch.float64) for t in floats):
+        raise TypeError(f"{name}: float32/float64 information only")
+    if any(t.dtype != torch.int64 for t in ints):
+        raise TypeError(f"{name}: int64 ids and block indices only")
+    P, M, N = lm.poses.shape[0], lm.M, lm.N
+    KU, KW = lm.KU, lm.KW
+    shapes = {"pose_ids": (P, M), "poses": (P, M, 6), "feats": (P, N, 3),
+              "U": (P, KU, 6, 6), "Uij": (P, KU, 2), "W": (P, KW, 6, 3),
+              "Wpf": (P, KW, 2), "V": (P, N, 3, 3)}
+    for f, want in shapes.items():
+        if tuple(getattr(lm, f).shape) != want:
+            raise ValueError(f"{name}: {f} must be {list(want)}, got "
+                             f"{list(getattr(lm, f).shape)}")
+    if any(tuple(t.shape) != (P,) for t in ints[3:]):
+        raise ValueError(f"{name}: gauge ids must be [P] = [{P}]")
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError(f"{name}: every input must be contiguous")
+
+
+def _k5_launch(lm: types.LocalMap, mono: bool, new: tuple,
+               idt: torch.dtype, lib, stream) -> dict:
+    """K5's launches (through `lib`, on `stream`) and its sort; returns
+    the new state and lists by the LocalMap field names, and the mono
+    sign."""
+    P, M, N, KU, KW = lm.poses.shape[0], lm.M, lm.N, lm.KU, lm.KW
+    dev = lm.poses.device
+    XU, XW = (2 * M + 3, 2 * N) if mono else (M + 1, N)
+    U, W, V = (t if t.dtype == idt else t.to(idt) for t in (lm.U, lm.W,
+                                                             lm.V))
+    i64 = dict(dtype=torch.int64, device=dev)
+    out = dict(
+        poses=torch.empty_like(lm.poses), feats=torch.empty_like(lm.feats),
+        U=torch.empty((P, KU + XU, 6, 6), dtype=idt, device=dev),
+        Uij=torch.empty((P, KU + XU, 2), **i64),
+        W=torch.empty((P, KW + XW, 6, 3), dtype=idt, device=dev),
+        Wpf=torch.empty((P, KW + XW, 2), **i64),
+        V=torch.empty_like(V))
+    if mono:
+        out["sign"] = torch.empty(P, **i64)
+    else:
+        out["pose_ids"] = torch.empty_like(lm.pose_ids)
+    if P == 0:
+        return out
+    keys = torch.empty(P * (2 * KU + 2 * KW), dtype=torch.int32, device=dev)
+    g = lm.gauge
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    a = _GcArgs(
+        ptr(lm.pose_ids), ptr(lm.poses), ptr(lm.feats), ptr(U), ptr(lm.Uij),
+        ptr(W), ptr(lm.Wpf), ptr(V), ptr(g.ref),
+        ptr(g.scap) if mono else None, ptr(g.fix) if mono else None,
+        ptr(new[0]), ptr(new[1]) if mono else None,
+        ptr(new[2]) if mono else None, ptr(out.get("pose_ids")),
+        ptr(out["poses"]), ptr(out["feats"]), ptr(out["U"]),
+        ptr(out["Uij"]), ptr(out["W"]), ptr(out["Wpf"]), ptr(out["V"]),
+        ptr(out.get("sign")), None, ptr(keys), None, None,
+        P, M, N, KU, KW, int(mono), int(idt == torch.float32))
+    nbytes = lib.gauge_congruence_scratch(ctypes.byref(a))
+    if nbytes < 0:
+        raise ValueError(f"gauge_congruence: sizes (P, M, N, KU, KW) = "
+                         f"{(P, M, N, KU, KW)} out of the kernel's range")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    a.scratch = scratch.data_ptr()
+    err = lib.gauge_congruence_a(ctypes.byref(a), stream)
+    if err != 0:
+        raise RuntimeError(f"gauge_congruence: CUDA launch failed (error "
+                           f"{err})")
+    # each emission term's (lane, segment), in list order within a segment
+    skeys, perm = torch.sort(keys, stable=True)
+    a.skeys, a.perm = skeys.data_ptr(), perm.data_ptr()
+    err = lib.gauge_congruence_b(ctypes.byref(a), stream)
+    if err != 0:
+        raise RuntimeError(f"gauge_congruence: CUDA launch failed (error "
+                           f"{err})")
+    return out
+
+
+def gauge_congruence(lm: types.LocalMap, mono: bool, new: tuple,
+                     info_dtype=None) -> types.LocalMap:
+    """K5: `congruence.transform_map_stereo_ref`'s (`mono` False, `new` =
+    (new_ref_id,)) or `transform_map_mono_ref`'s (`mono` True, `new` =
+    (new_ref_id, new_scap_id, new_fix)) transform of every lane of the
+    CUDA map `lm` and its congruence, from six launches and one sort. The
+    Jacobians come from dual numbers, not jacfwd, and the sums run in
+    another fixed order: the result equals the plain version's to
+    rounding, and two calls give the same bits. A pinned coordinate
+    `new_fix[p]` outside 0-2, which the plain version refuses, gives NaN
+    states in lane p (checking it would cost a sync a call).
+
+    float64 state, float32/float64 information (cast to `info_dtype`, the
+    products' dtype, as the plain version does), int64 indices and ids
+    [P], all contiguous on one CUDA device; anything else raises."""
+    idt = types.as_dtype(info_dtype) or lm.U.dtype
+    _k5_check(lm, mono, new, idt)
+    dev = lm.poses.device
+    out = _k5_launch(lm, mono, new, idt, build(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    launches["gauge_congruence"] += 1
+    P = lm.poses.shape[0]
+    count = lambda k: torch.full((P,), k, dtype=types.INDEX,  # noqa: E731
+                                 device=dev)
+    sign = out.pop("sign", None)
+    gauge = (dataclasses.replace(lm.gauge, ref=new[0], scap=new[1],
+                                 fix=new[2], sign=sign) if mono
+             else dataclasses.replace(lm.gauge, ref=new[0]))
+    return dataclasses.replace(lm, **out, n_U=count(out["U"].shape[1]),
+                               n_W=count(out["W"].shape[1]), gauge=gauge)
+

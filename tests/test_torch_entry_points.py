@@ -58,7 +58,10 @@ def test_entry_points_default_to_the_card_on_cuda(tmp_path, entry):
     """The same calls on a CUDA machine solve on cuda:0: the solvers'
     device, the device tree's root poses, K2 launched at every executor's
     joins and K1 in the dense assemblies (the host executor, the
-    pipeline's default, assembles these small joins grouped)."""
+    pipeline's default, assembles these small joins grouped); the device
+    and host executors also sum in the fixed order (K3) and transform on
+    the card (K5), and the device executor's refine joins form their f32
+    Schur product with K4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,5 +76,10 @@ def test_entry_points_default_to_the_card_on_cuda(tmp_path, entry):
             assert out.poses.device == torch.device("cuda", 0)
     torch.cuda.synchronize()
     ran = {k for k in n0 if kernels.launches[k] > n0[k]}
-    assert ran == ({"inv3x3_sym"} if entry in ("TreeSolver", "pipeline.run")
-                   else {"blockcoo_to_dense", "inv3x3_sym"}), ran
+    want = {"DeviceTreeSolver": {"blockcoo_to_dense", "inv3x3_sym",
+                                 "seg_sum_fixed", "schur_pairs",
+                                 "gauge_congruence"},
+            "TreeSolver": {"inv3x3_sym", "seg_sum_fixed", "gauge_congruence"},
+            "DenseTreeSolver": {"blockcoo_to_dense", "inv3x3_sym"}}
+    want["pipeline.run"] = want["TreeSolver"]
+    assert ran == want[entry], ran

@@ -1,5 +1,5 @@
-"""Kernels K1 (`blockcoo_to_dense`), K2 (`inv3x3_sym`) and K4
-(`schur_pairs`) of the PyTorch port.
+"""Kernels K1 (`blockcoo_to_dense`), K2 (`inv3x3_sym`), K4
+(`schur_pairs`) and K5 (`gauge_congruence`) of the PyTorch port.
 
 * K1's plain PyTorch version against the reference's Pallas kernel in
   interpret mode (the cases of tests/test_pallas.py, K = 0, a lane-folded
@@ -20,7 +20,11 @@
   sequential loop in the kernel's order, and its fused multiply-add
   (`kernels._fma32`) against exact rational arithmetic;
 * the wrappers' dispatch: CPU tensors take the plain version and count no
-  launch; a device without a kernel raises instead of falling back;
+  launch; a device without a kernel raises instead of falling back; K5's
+  wrapper on the CPU is the plain transform (`torch.equal`) in stereo and
+  mono, float32 and float64 information, with padded slots and entries,
+  every mono projection case and each pinned coordinate 0-5 (3-5 raise in
+  both);
 * the port imports neither jax nor the reference package;
 * on a CUDA card (marker `cuda`), each kernel against its plain version in
   float32 and float64; the fused K2 bit for bit at its tile edges; K1 also
@@ -580,6 +584,122 @@ def test_schur_pairs_dispatch_counts_only_kernel_launches():
                                      for a in (W, Y, eF)), plan)
 
 
+# K5: lanes whose old gauge is (ref id 10 at slot 0, scap id 11 at slot 1,
+# fix 2), and per lane a new mono gauge (ref, scap, fix) that takes each
+# projection case: generic, the old ref is the new scap (r == p2), the old
+# scap is the new ref (s == p1), ref and scap swapped, the same gauge
+K5_MONO_GAUGES = ((13, 14, 1), (12, 10, 0), (11, 13, 1), (11, 10, 2),
+                  (10, 11, 2))
+
+
+def _k5_map(seed, P, M, N, KU, KW, mono, pad=1, device="cpu"):
+    """A lane stack with random states and information: pose ids 10..,
+    the last `pad` slots of every lane dead (-1), the last 3 U entries
+    padding ((0, 0), zero blocks); stereo's old reference (id 3) is no
+    slot, as in the tree's maps."""
+    rng = np.random.default_rng(seed)
+    ids = np.tile(np.arange(M) + 10, (P, 1))
+    ids[:, M - pad:] = -1
+    poses = rng.standard_normal((P, M, 6))
+    poses[..., 3:] *= 0.5
+    feats = rng.standard_normal((P, N, 3)) * 2.0
+    A = rng.standard_normal((P, KU, 6, 6))
+    U = A + A.transpose(0, 1, 3, 2)
+    Uij = np.sort(rng.integers(0, M, (P, KU, 2)), axis=-1)
+    Uij[:, -3:], U[:, -3:] = 0, 0.0
+    W = rng.standard_normal((P, KW, 6, 3))
+    Wpf = np.stack([rng.integers(0, M, (P, KW)), rng.integers(0, N, (P, KW))],
+                   -1)
+    B = rng.standard_normal((P, N, 3, 3))
+    V = B @ B.transpose(0, 1, 3, 2)
+    full = lambda v: np.full(P, v, np.int64)  # noqa: E731
+    if mono:
+        gauge = (ids[:, 0].copy(), ids[:, 1].copy(), full(2), full(1),
+                 ids[:, 0].copy(), ids[:, 1].copy(), full(2))
+    else:
+        gauge = (full(3), full(-1), full(-1), full(1), full(3), full(-1),
+                 full(-1))
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    from linearsfm_tpu_torch import types
+    return types.LocalMap(
+        pose_ids=t(ids), poses=t(poses), feat_ids=t(np.tile(np.arange(N),
+                                                            (P, 1))),
+        feats=t(feats), U=t(U), Uij=t(Uij), W=t(W), Wpf=t(Wpf), V=t(V),
+        n_poses=t(full(M - pad)), n_feats=t(full(N)), n_U=t(full(KU - 3)),
+        n_W=t(full(KW)), gauge=types.Gauge(*(t(g) for g in gauge)))
+
+
+def _k5_case(datatype, device="cpu", fix=None):
+    """(map, new gauge ids) of K5's small cases: 3 stereo lanes, or one
+    mono lane per projection case (every lane pinned at `fix` if given)."""
+    if datatype == "stereo":
+        lm = _k5_map(5, 3, 7, 11, 16, 40, False, device=device)
+        return lm, (torch.tensor([13, 10, 15], device=device),)
+    lm = _k5_map(6, len(K5_MONO_GAUGES), 7, 11, 16, 40, True, device=device)
+    new = [torch.tensor(col, device=device) for col in zip(*K5_MONO_GAUGES)]
+    if fix is not None:
+        new[2] = torch.full_like(new[2], fix)
+    return lm, tuple(new)
+
+
+def _k5_call(fn_name, lm, new, info):
+    from linearsfm_tpu_torch.ops import congruence
+    return getattr(congruence, fn_name)(lm, *new, info_dtype=info)
+
+
+def _k5_fields(lm):
+    from linearsfm_tpu_torch import types
+    return ([getattr(lm, f) for f in types.MAP_FIELDS]
+            + [getattr(lm.gauge, f) for f in types.GAUGE_FIELDS])
+
+
+@pytest.mark.parametrize("info", [None, "float32"])
+@pytest.mark.parametrize("datatype", ["stereo", "mono"])
+def test_gauge_congruence_cpu_is_the_plain_transform(datatype, info):
+    """On the CPU the transform takes the plain version: every field and
+    gauge tag `torch.equal` to `transform_map_*_ref`'s, and no launch."""
+    lm, new = _k5_case(datatype)
+    before = dict(kernels.launches)
+    got = _k5_call(f"transform_map_{datatype}", lm, new, info)
+    want = _k5_call(f"transform_map_{datatype}_ref", lm, new, info)
+    assert kernels.launches == before
+    for a, b in zip(_k5_fields(got), _k5_fields(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got.U.dtype == (torch.float32 if info else torch.float64)
+
+
+@pytest.mark.parametrize("fix", range(6))
+def test_gauge_congruence_cpu_pinned_coordinate(fix):
+    """Each pinned coordinate: 0-2 give the plain version's map, 3-5 (no
+    translation coordinate) raise in both."""
+    lm, new = _k5_case("mono", fix=fix)
+    if fix < 3:
+        got = _k5_call("transform_map_mono", lm, new, None)
+        want = _k5_call("transform_map_mono_ref", lm, new, None)
+        for a, b in zip(_k5_fields(got), _k5_fields(want)):
+            assert torch.equal(a, b)
+        return
+    for name in ("transform_map_mono", "transform_map_mono_ref"):
+        with pytest.raises(RuntimeError, match="out of bounds"):
+            _k5_call(name, lm, new, None)
+
+
+def test_gauge_congruence_refuses_a_device_without_kernel():
+    """A map on a device without a kernel raises instead of falling back,
+    and counts no launch."""
+    from linearsfm_tpu_torch import types
+    lm, new = _k5_case("stereo")
+    meta = types.map_fields(lm, lambda a: a.to("meta"))
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="no kernel"):
+        _k5_call("transform_map_stereo", meta, (new[0].to("meta"),), None)
+    lm, new = _k5_case("mono")
+    with pytest.raises(ValueError, match="no kernel"):
+        _k5_call("transform_map_mono", types.map_fields(
+            lm, lambda a: a.to("meta")), [t.to("meta") for t in new], None)
+    assert kernels.launches == before
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port (each module and subpackage that
     `pkgutil.walk_packages` finds under `linearsfm_tpu_torch`, the tools
@@ -939,3 +1059,170 @@ def test_schur_pairs_kernel_matches_plain_on_cuda(case):
         kernels.schur_pairs(S.double(), E, W_d, Y_d, eF_d, plan)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.schur_pairs(S.transpose(1, 2), E, W_d, Y_d, eF_d, plan)
+
+
+# K5 on the card against its plain version, per float field: |kernel -
+# plain| <= tol x the plain field's largest magnitude. The Jacobians come
+# from dual numbers where the plain version's come from jacfwd's tangent
+# rules (a few ulps apart), and every product and sum is taken in another
+# fixed order (the emission sums in list order, the cross sums over the
+# segments' emissions): float64 rounding, eps 1.1e-16, over sums of up to
+# about 10^4 terms whose magnitudes exceed the field's largest by at most
+# about 100 through cancellation, bounds the difference by about 1e-10;
+# float32 information (eps 6e-8) over the small cases' sums of at most 40
+# terms by about 1e-5.
+K5_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+
+
+def _k5_assert_close(tag, got, want):
+    for f, a, b in zip(_k5_names(), _k5_fields(got), _k5_fields(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, (tag, f)
+        if not a.is_floating_point():
+            assert torch.equal(a, b), (tag, f)
+            continue
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), (tag, f)
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        assert err <= K5_TOL[a.dtype] * scale, (tag, f, err, scale)
+
+
+def _k5_names():
+    from linearsfm_tpu_torch import types
+    return list(types.MAP_FIELDS) + [f"gauge.{f}" for f in types.GAUGE_FIELDS]
+
+
+def _k5_same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_k5_fields(a),
+                                                   _k5_fields(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("info", [None, "float32"])
+@pytest.mark.parametrize("datatype", ["stereo", "mono"])
+def test_gauge_congruence_kernel_matches_plain_on_cuda(datatype, info):
+    """K5 against the plain transform on the card (padded slots and
+    entries; mono: one lane per projection case) within K5_TOL; one count
+    a call; a second call gives the same bits."""
+    _needs_card()
+    lm, new = _k5_case(datatype, device="cuda")
+    want = _k5_call(f"transform_map_{datatype}_ref", lm, new, info)
+    n0 = kernels.launches["gauge_congruence"]
+    got = _k5_call(f"transform_map_{datatype}", lm, new, info)
+    again = _k5_call(f"transform_map_{datatype}", lm, new, info)
+    torch.cuda.synchronize()
+    assert kernels.launches["gauge_congruence"] == n0 + 2
+    _k5_assert_close(f"{datatype} {info}", got, want)
+    assert _k5_same_bits(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fix", range(6))
+def test_gauge_congruence_pinned_coordinate_on_cuda(fix):
+    """Each pinned coordinate on the card: 0-2 match the plain version,
+    3-5 (which the plain version refuses) give NaN states in every lane."""
+    _needs_card()
+    lm, new = _k5_case("mono", device="cuda", fix=fix)
+    got = _k5_call("transform_map_mono", lm, new, None)
+    torch.cuda.synchronize()
+    if fix < 3:
+        _k5_assert_close(f"fix {fix}", got, _k5_call(
+            "transform_map_mono_ref", lm, new, None))
+    else:
+        assert not torch.isfinite(got.poses).flatten(1).all(1).any()
+
+
+def _k5_cell_calls(cell):
+    """The first K5 call (level 1's merge transform) and the last call on
+    one lane (the root's) of a solve of the benchmark cell's first set
+    (seed 0), as (map, new gauge ids, info dtype)."""
+    import json
+    from benchmark import gen
+    from linearsfm_tpu_torch.core.device_tree import DeviceTreeSolver
+    with open(os.path.join(REPO, "benchmark", "configs", f"{cell}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(REPO, "benchmark", "traffic", "covis.json")) as f:
+        mix = json.load(f)
+    maps = gen.make_set(cfg, mix, 0, 0)
+    calls = []
+    saved = kernels.gauge_congruence
+
+    def spy(lm, mono, new, info_dtype=None):
+        calls.append((lm, new, info_dtype))
+        return saved(lm, mono, new, info_dtype)
+    kernels.gauge_congruence = spy
+    try:
+        DeviceTreeSolver(cfg["datatype"], method=cfg["method"]).run(maps)
+    finally:
+        kernels.gauge_congruence = saved
+    return cfg["datatype"], calls[0], [c for c in calls
+                                       if c[0].poses.shape[0] == 1][-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["nc3500_stereo", "rs468_mono",
+                                  "mono3499_refine"])
+def test_gauge_congruence_cell_shapes_on_cuda(cell):
+    """K5 against the plain transform on the inputs of a benchmark cell's
+    level-1 and root calls, within K5_TOL, two calls bit for bit."""
+    _needs_card()
+    from linearsfm_tpu_torch.ops import segment
+    torch.backends.cuda.matmul.allow_tf32 = False
+    datatype, *cases = _k5_cell_calls(cell)
+    for where, (lm, new, info) in zip(("level 1", "root"), cases):
+        with segment.deterministic():
+            want = _k5_call(f"transform_map_{datatype}_ref", lm, new, info)
+            got = _k5_call(f"transform_map_{datatype}", lm, new, info)
+            again = _k5_call(f"transform_map_{datatype}", lm, new, info)
+        torch.cuda.synchronize()
+        _k5_assert_close(f"{cell} {where} {tuple(lm.U.shape[:2])}", got,
+                         want)
+        assert _k5_same_bits(got, again), (cell, where)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("datatype", ["stereo", "mono"])
+def test_gauge_congruence_dispatches_few_ops_on_cuda(datatype):
+    """One K5 call dispatches at most 60 aten operations (the plain
+    version: about 1,000 stereo, 1,500 mono)."""
+    _needs_card()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    lm, new = _k5_case(datatype, device="cuda")
+    _k5_call(f"transform_map_{datatype}", lm, new, None)   # the build
+    with Count():
+        _k5_call(f"transform_map_{datatype}", lm, new, None)
+    n_kernel = Count.n
+    Count.n = 0
+    with Count():
+        _k5_call(f"transform_map_{datatype}_ref", lm, new, None)
+    assert n_kernel <= 60, n_kernel
+    assert Count.n > 10 * n_kernel, (Count.n, n_kernel)
+
+
+@pytest.mark.cuda
+def test_gauge_congruence_refuses_bad_inputs_on_cuda():
+    """Non-contiguous, float32-state, int32-index and cross-device inputs
+    raise, and count no launch."""
+    _needs_card()
+    import dataclasses
+    lm, new = _k5_case("mono", device="cuda")
+    n0 = kernels.launches["gauge_congruence"]
+    bad = [
+        (ValueError, "contiguous", dataclasses.replace(
+            lm, U=lm.U.transpose(2, 3).contiguous().transpose(2, 3)), new),
+        (TypeError, "float64 states", dataclasses.replace(
+            lm, poses=lm.poses.float()), new),
+        (TypeError, "int64", dataclasses.replace(
+            lm, Uij=lm.Uij.to(torch.int32)), new),
+        (ValueError, "tensor on", lm, (new[0].cpu(), *new[1:])),
+    ]
+    for exc, match, m, ids in bad:
+        with pytest.raises(exc, match=match):
+            _k5_call("transform_map_mono", m, ids, None)
+    assert kernels.launches["gauge_congruence"] == n0

@@ -23,8 +23,8 @@ torch.set_num_threads(1)
 
 OLD_KEYS = ("compact", "plan", "upload", "levels", "get")
 COUNTS = ("pcg_sweeps", "pcg_escalations", "syncs", "k1_launches",
-          "k2_launches", "k3_launches", "k4_launches", "k3_plans",
-          "k3_plan_hits")
+          "k2_launches", "k3_launches", "k4_launches", "k5_launches",
+          "k3_plans", "k3_plan_hits")
 # each span name's possible parents (None: the solve itself)
 PARENTS = {"ingest_plan": {None}, "plan_tree": {"ingest_plan"},
            "upload": {None}, "levels": {None}, "level": {"levels"},
@@ -114,7 +114,7 @@ def test_last_timing_holds_old_and_new_numbers(solved, case):
     assert t["syncs"] == sum(sp["name"] == "sync" for sp in s.last_spans)
     # the CPU launches no kernel, and sums no list through K3's plans
     assert (t["k1_launches"] == t["k2_launches"] == t["k3_launches"]
-            == t["k4_launches"] == 0)
+            == t["k4_launches"] == t["k5_launches"] == 0)
     assert t["k3_plans"] == t["k3_plan_hits"] == 0
 
 
