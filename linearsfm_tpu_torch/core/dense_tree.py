@@ -38,9 +38,34 @@ from ..ops.segment import put1, take1
 from ..parallel.mesh import solver_device
 from . import compact as compact_mod
 from . import layout as L
-from .device_tree import LevelTimer
 
 log = logging.getLogger("linearsfm_tpu_torch")
+
+
+class LevelTimer:
+    """Per-level device walls: CUDA events on a GPU (read after the final
+    synchronise, so timing does not stall the pipeline), the spans' host
+    clock (`utils/metrics`) on the CPU, where every operation is
+    synchronous. The executor marks each level boundary."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter_ns() * 1e-9)
+
+    def walls(self) -> list[float]:
+        """Seconds between consecutive marks."""
+        if self.cuda:
+            return [a.elapsed_time(b) / 1e3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
 # ---------------------------------------------------------------------------

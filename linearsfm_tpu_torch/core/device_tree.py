@@ -36,7 +36,8 @@ from ..ops import congruence, kernels, segment
 from ..parallel import level as plevel
 from ..parallel.mesh import canonical, solver_device
 from ..utils import checkpoint
-from ..utils.metrics import recording, self_seconds, span
+from ..utils.metrics import (device_span, read_device_walls, recording,
+                             self_seconds, span)
 from . import compact as compact_mod
 from . import dcompact
 from . import join as join_mod
@@ -46,7 +47,7 @@ log = logging.getLogger("linearsfm_tpu_torch")
 
 # spans whose self seconds, summed over a solve, `_last_timing` holds
 SELF_TIMED = ("plan_tree", "transform", "join", "sync", "regauge_compact",
-              "final", "mono_gauge")
+              "final", "mono_gauge", "schur_f64")
 
 
 def pad_to_device(lm: types.LocalMap, M: int, N: int, KU: int,
@@ -82,33 +83,6 @@ def _grow_stacked(stacked: types.LocalMap, M: int, N: int, KU: int,
         U=grow(stacked.U, KU), Uij=grow(stacked.Uij, KU),
         W=grow(stacked.W, KW), Wpf=grow(stacked.Wpf, KW),
         V=grow(stacked.V, N))
-
-
-class LevelTimer:
-    """Per-level device walls: CUDA events on a GPU (read after the final
-    synchronise, so timing does not stall the pipeline), the spans' host
-    clock (`utils/metrics`) on the CPU, where every operation is
-    synchronous. The dense executor marks each level boundary; the device
-    executor marks each `level` span's start and end."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter_ns() * 1e-9)
-
-    def walls(self) -> list[float]:
-        """Seconds between consecutive marks."""
-        if self.cuda:
-            return [a.elapsed_time(b) / 1e3
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
 class DeviceTreeSolver:
@@ -418,11 +392,17 @@ class DeviceTreeSolver:
         `transform`, `join` (attributes: the PCG's sweeps and escalations)
         and `regauge_compact` spans, then `final` and the closing `sync`;
         a `sync` spans each blocking read of the PCG, and a mono join's
-        `mono_gauge` what the mono gauge adds before its solve. Afterwards
+        `mono_gauge` what the mono gauge adds before its solve, and a
+        `schur_f64` each float64 Schur assembly inside a join (attributes:
+        P, M, N, KU, KW, device_wall [s]). Afterwards
         `last_spans` holds them, and `_last_timing` (a new flat dict of
         numbers) the host phases compact, plan, upload, levels (to the
         synchronise) and get [s], the self seconds of the spans in
-        SELF_TIMED, and the solve's counts: pcg_sweeps, pcg_escalations,
+        SELF_TIMED, schur_f64_s (the `schur_f64` spans' device walls
+        summed) and schur_f64_ku / _kw / _m / _n / _m2 (KU, KW, M, N and
+        M squared summed over those spans' lanes; all 0 on a solve that
+        forms none, as the PCG levels of method refine do), and
+        the solve's counts: pcg_sweeps, pcg_escalations,
         syncs, k1/k2/k3/k4/k5_launches (`kernels.launches`; K5: one per
         gauge transform on the card), k3_plans and k3_plan_hits
         (`segment._plan`)."""
@@ -454,24 +434,23 @@ class DeviceTreeSolver:
             with span("upload"):
                 x = types.to_torch(stacked, self.device)
             t3 = time.perf_counter()
-            timer = LevelTimer(self.device)
+            cuda = self.device.type == "cuda"
             level_spans, res_per_level = [], {}
             with span("levels"):
                 for li, lp in enumerate(tp.levels[start_level:] if tp else (),
                                         start=start_level):
-                    with span("level", level=li + 1, count=lp.count,
-                              join_m=lp.join_m,
-                              mode=self._level_mode(lp, self._level_cfg(lp))
-                              ) as sp:
-                        timer.mark()
+                    with device_span(
+                            "level", self.device, level=li + 1,
+                            count=lp.count, join_m=lp.join_m,
+                            mode=self._level_mode(lp, self._level_cfg(lp))
+                    ) as sp:
                         x, res = self._level(x, lp)
-                        timer.mark()
                         # memory_allocated's value without its flattening
                         # of every statistic (about 100 us a call)
                         sp["attrs"]["memory_allocated"] = (
                             torch.cuda.memory_stats_as_nested_dict(
                                 self.device)["allocated_bytes"]["all"][
-                                "current"] if timer.cuda else None)
+                                "current"] if cuda else None)
                     level_spans.append(sp)
                     res_per_level[li + 1] = res
                     if ckpt_dir:
@@ -488,12 +467,12 @@ class DeviceTreeSolver:
                 y = (self._final(x, tp.root_caps, tp.root_regauge) if tp
                      else types.lanes(x, 0))
                 with span("sync"):
-                    if timer.cuda:
+                    if cuda:
                         torch.cuda.synchronize(self.device)
             t4 = time.perf_counter()
-        # the level spans' device walls, read after the synchronise
-        for sp, wall in zip(level_spans, timer.walls()[::2]):
-            sp["attrs"]["device_wall"] = wall
+        # the device walls of the level and schur_f64 spans, read after the
+        # synchronise
+        read_device_walls(rec.spans)
         # per-level PCG residuals, read once after the tree
         self.last_residuals = {lv: r.cpu().numpy()
                                for lv, r in res_per_level.items()}
@@ -513,9 +492,19 @@ class DeviceTreeSolver:
         self.last_spans = rec.spans
         own = self_seconds(rec.spans)
         n = rec.counts
+        f64 = [sp["attrs"] for sp in rec.spans if sp["name"] == "schur_f64"]
+
+        def lanes(key, power=1):
+            """A `schur_f64` attribute (to `power`) summed over the lanes
+            of the solve's float64 Schur assemblies."""
+            return sum(a["P"] * a[key] ** power for a in f64)
         self._last_timing = dict(
             compact=t1 - t0, plan=t2 - t1, upload=t3 - t2, levels=t4 - t3,
             **{k: own.get(k, 0.0) for k in SELF_TIMED},
+            schur_f64_s=sum(a["device_wall"] for a in f64),
+            schur_f64_ku=lanes("KU"), schur_f64_kw=lanes("KW"),
+            schur_f64_m=lanes("M"), schur_f64_n=lanes("N"),
+            schur_f64_m2=lanes("M", 2),
             pcg_sweeps=n.get("pcg_sweeps", 0),
             pcg_escalations=n.get("pcg_escalations", 0),
             syncs=sum(1 for sp in rec.spans if sp["name"] == "sync"),

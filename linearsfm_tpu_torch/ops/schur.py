@@ -138,14 +138,19 @@ def _assemble_schur_dense(U, Uij, W, Wpf, Yb, eP, eF, M: int):
     wp, wf = Wpf[..., 0], Wpf[..., 1]
 
     if dtype != torch.float32:
-        A = densify_blocks(ui, uj, U, M, M)
-        Uo = torch.where((ui != uj)[..., None, None], U, U.new_zeros(()))
-        A += densify_blocks(uj, ui, Uo.transpose(-1, -2).contiguous(), M, M)
-        wplan = kernels.coo_plan(wp, wf, M, N)
-        Wd = densify_planned(wplan, W)
-        Yd = densify_planned(wplan, Yb)
-        S = A - Yd @ Wd.transpose(-1, -2)
-        E = eP.reshape(P, -1) - bmv(Yd, eF.reshape(P, -1))
+        # a span with the device's time (`utils/metrics.device_span`) and
+        # the shapes that the assembly's least bytes are counted from
+        with metrics.device_span("schur_f64", dev, P=P, M=M, N=N,
+                                 KU=U.shape[1], KW=W.shape[1]):
+            A = densify_blocks(ui, uj, U, M, M)
+            Uo = torch.where((ui != uj)[..., None, None], U, U.new_zeros(()))
+            A += densify_blocks(uj, ui, Uo.transpose(-1, -2).contiguous(), M,
+                                M)
+            wplan = kernels.coo_plan(wp, wf, M, N)
+            Wd = densify_planned(wplan, W)
+            Yd = densify_planned(wplan, Yb)
+            S = A - Yd @ Wd.transpose(-1, -2)
+            E = eP.reshape(P, -1) - bmv(Yd, eF.reshape(P, -1))
         return S, E
 
     require_full_f32(dev)

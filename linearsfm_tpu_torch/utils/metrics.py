@@ -16,6 +16,9 @@ span. Outside a recorder both are a shared no-op. While a torch.profiler
 session records, each span also opens `torch.profiler.record_function`
 under its name, so the spans lie in the session's Chrome trace on the
 device records' clock; with no session recording none is opened.
+`device_span` is a span that also times the device work issued inside it
+(CUDA events, never waited on), and `read_device_walls`, called after the
+solve's closing synchronise, turns those events into `device_wall`.
 """
 
 from __future__ import annotations
@@ -86,6 +89,53 @@ def span(name: str, **attrs):
     if rec is None:
         return _OFF
     return _Span(rec, name, attrs)
+
+
+# the attribute under which a `device_span` keeps its CUDA events (None on
+# the CPU) until `read_device_walls` replaces them by `device_wall`
+_EVENTS = "_device_events"
+
+
+@contextlib.contextmanager
+def device_span(name: str, device: torch.device, **attrs):
+    """`span`, and on a CUDA device a pair of timing events recorded on
+    the device's current stream at its start and end; outside a solve a
+    no-op (target None) that records no event. The span gets its
+    `device_wall` [s] from `read_device_walls`: the time between its
+    events, or on the CPU, where every operation is synchronous, its host
+    clock."""
+    with span(name, **attrs) as rec:
+        if rec is None:
+            yield None
+            return
+        ev = None
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record(stream)
+        rec["attrs"][_EVENTS] = ev
+        try:
+            yield rec
+        finally:
+            if ev is not None:
+                ev[1].record(stream)
+
+
+def read_device_walls(spans: list[dict]) -> None:
+    """Set `device_wall` [s] on every span that `device_span` opened. Call
+    it after a synchronise that follows the spans' work: the events are
+    then complete, and reading them waits for nothing."""
+    for sp in spans:
+        attrs = sp["attrs"]
+        if _EVENTS not in attrs:
+            continue
+        ev = attrs.pop(_EVENTS)
+        if ev is None:
+            attrs["device_wall"] = (sp["end"] - sp["start"]) * 1e-9
+        else:
+            ev[1].synchronize()
+            attrs["device_wall"] = ev[0].elapsed_time(ev[1]) * 1e-3
 
 
 def count(name: str, n: int = 1) -> None:

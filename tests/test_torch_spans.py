@@ -25,21 +25,32 @@ OLD_KEYS = ("compact", "plan", "upload", "levels", "get")
 COUNTS = ("pcg_sweeps", "pcg_escalations", "syncs", "k1_launches",
           "k2_launches", "k3_launches", "k4_launches", "k5_launches",
           "k3_plans", "k3_plan_hits")
+# the float64 Schur assembly's shapes that `_last_timing` sums over the
+# lanes of the solve's `schur_f64` spans (each: of one span's attributes)
+SCHUR_F64 = {"schur_f64_ku": lambda a: a["KU"],
+             "schur_f64_kw": lambda a: a["KW"],
+             "schur_f64_m": lambda a: a["M"],
+             "schur_f64_n": lambda a: a["N"],
+             "schur_f64_m2": lambda a: a["M"] ** 2}
 # each span name's possible parents (None: the solve itself)
 PARENTS = {"ingest_plan": {None}, "plan_tree": {"ingest_plan"},
            "upload": {None}, "levels": {None}, "level": {"levels"},
            "transform": {"level"}, "join": {"level"},
            "sync": {"join", "levels"}, "regauge_compact": {"level", "final"},
-           "final": {"levels"}, "mono_gauge": {"join"}}
+           "final": {"levels"}, "mono_gauge": {"join"},
+           "schur_f64": {"join"}}
 # spans that only a mono join opens
 MONO_ONLY = {"mono_gauge"}
+# spans that only a join forming its Schur matrix in float64 opens
+DIRECT_ONLY = {"schur_f64"}
 # stereo refine below the top band (fixed trips), stereo refine with the
 # top band's early exit and escalation test from 16 joined poses, mono
 # direct (no PCG), mono refine with the top band from 16 joined poses (the
-# PCG with the scale pin)
+# PCG with the scale pin), stereo direct
 CASES = {"stereo_refine": ("stereo", dict(method="refine")),
          "stereo_top": ("stereo", dict(method="refine", top_min_m=16)),
          "mono_direct": ("mono", dict(method="direct")),
+         "stereo_direct": ("stereo", dict(method="direct")),
          "mono_top": ("mono", dict(method="refine", top_min_m=16))}
 
 
@@ -105,7 +116,8 @@ def test_span_tree_nests_as_documented(solved, case):
 def test_last_timing_holds_old_and_new_numbers(solved, case):
     s, _, _ = solved[case]
     t = s._last_timing
-    assert set(t) == set(OLD_KEYS) | set(SELF_TIMED) | set(COUNTS)
+    assert set(t) == (set(OLD_KEYS) | set(SELF_TIMED) | set(COUNTS)
+                      | {"schur_f64_s"} | set(SCHUR_F64))
     assert all(isinstance(v, numbers.Real) and not isinstance(v, bool)
                for v in t.values())
     assert t["plan_tree"] <= t["plan"]
@@ -179,6 +191,35 @@ def test_mono_gauge_span(solved, case):
     # the join's self time leaves the gauge's out
     whole = sum(spans[i]["end"] - spans[i]["start"] for i in joins) * 1e-9
     assert own["join"] + own["mono_gauge"] <= whole + 1e-9
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_schur_f64_span(solved, case):
+    """A direct join forms its Schur matrix in float64 once, inside one
+    `schur_f64` span (attributes: the assembly's lanes and shapes, its
+    device wall), and `_last_timing` sums the walls, and the shapes over
+    those spans' lanes; a refine solve opens none and reads 0."""
+    s, maps, _ = solved[case]
+    spans, t = s.last_spans, s._last_timing
+    f64 = [sp for sp in spans if sp["name"] == "schur_f64"]
+    if CASES[case][1]["method"] == "refine":
+        assert f64 == []
+        assert t["schur_f64_s"] == 0 and all(t[k] == 0 for k in SCHUR_F64)
+        return
+    joins = [i for i, sp in enumerate(spans) if sp["name"] == "join"]
+    assert [sp["parent"] for sp in f64] == joins
+    tp, _ = s.prepare(maps)
+    for sp, lp in zip(f64, tp.levels):
+        a = sp["attrs"]
+        assert set(a) == {"P", "M", "N", "KU", "KW", "device_wall"}
+        assert a["P"] == lp.count // 2 and a["M"] >= lp.join_m
+        assert min(a["N"], a["KU"], a["KW"]) > 0
+        # on the CPU the device wall is the span's host clock
+        assert a["device_wall"] == (sp["end"] - sp["start"]) * 1e-9 > 0
+    assert t["schur_f64_s"] == sum(sp["attrs"]["device_wall"] for sp in f64)
+    for k, term in SCHUR_F64.items():
+        assert t[k] == sum(sp["attrs"]["P"] * term(sp["attrs"])
+                           for sp in f64) > 0
 
 
 def test_k3_plan_counts(monkeypatch):
@@ -281,8 +322,8 @@ def test_pipeline_trace_holds_the_program_spans(tmp_path):
     by_name = {}
     for e in ranges:
         by_name.setdefault(e["name"], []).append(e)
-    assert set(PARENTS) - MONO_ONLY <= set(by_name)
-    assert not MONO_ONLY & set(by_name)
+    assert set(PARENTS) - MONO_ONLY - DIRECT_ONLY <= set(by_name)
+    assert not (MONO_ONLY | DIRECT_ONLY) & set(by_name)
 
     def inside(child, parent):
         return (parent["ts"] <= child["ts"] and child["ts"] + child["dur"]
